@@ -1,13 +1,16 @@
 """Run the PyTorch port on one NVIDIA GPU: build its kernels, hold each one
-against its plain PyTorch version, then drive the analyst-serving path at
-full size through the entry points a user calls.
+against its plain PyTorch version, then drive the platform's two paths at
+full size through the entry points a user calls: the analyst-serving path
+(reads and analytics windows through the gateway) and the federated round
+(rounds submitted through the gateway, then the int8 upload codec on a
+full-size model delta).
 
     python3 chip_smoke.py
 
 Phases, one JSON line each: `env`, `build`, `kernels` (one line per
-kernel case), `serve`. Then the kernel summary line, the card's name and
-power limit as `nvidia-smi` prints them, and last
-``{"ok": true, "device": {...}}``. Any failed check raises and the script
+kernel case, both kernels), `serve`, `federated`. Then the kernel summary
+line, the card's name and power limit as `nvidia-smi` prints them, and
+last ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero; without CUDA it exits non-zero before printing anything.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -29,6 +32,13 @@ N_VEHICLES = 100_000
 SESSIONS = 32
 WINDOWS = 3
 SIGNAL = "Vehicle.FuelRate"
+FED_ROUNDS = 2
+FED_DIM = 32
+#: the full-size int8 case: a 268M-parameter delta in the codec's rows
+QUANT_ROWS, QUANT_COLS = 65_536, 4096
+#: the full-size model of the client_delta check: LAYERS (width, width)
+#: least-squares layers, LAYERS * width**2 = QUANT_ROWS * QUANT_COLS
+LAYERS, WIDTH = 16, 4096
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -161,6 +171,83 @@ def phase_kernels(sk) -> dict:
     return main
 
 
+def quant_special(cols: int) -> torch.Tensor:
+    """A zero row, a row of exact .5 ties after scaling (absmax 254, so
+    s = 2), a row that clips at +-127, and a row with a NaN (last)."""
+    ties = (torch.arange(cols, dtype=torch.float32) % 255) - 127
+    ties[0] = 254.0
+    clip = torch.linspace(-1.0, 1.0, cols)
+    clip[0], clip[-1] = 1e30, -1e30
+    nan_row = torch.linspace(-3.0, 3.0, cols)
+    nan_row[cols // 2] = torch.nan
+    return torch.stack([torch.zeros(cols), ties, clip, nan_row]).to(DEVICE)
+
+
+def phase_quantize(qz) -> dict:
+    """Hold the int8 kernel against `quantize_int8_plain` on the card,
+    bitwise on q and s (s only where a row holds a NaN), at the codec's
+    full size and at the edge shapes. Returns the full-size timings."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    cases = [  # name, shape, special rows
+        ("full", (QUANT_ROWS, QUANT_COLS), False),
+        ("one row", (1, 4096), False),
+        ("round payload rows", (4096, 256), False),
+        ("ragged cols", (4096, 1000), False),
+        ("scalar path", (4096, 1001), False),
+        ("zero, ties, clip, NaN rows", (4, 4096), True),
+        ("zero, ties, clip, NaN rows", (4, 1001), True),
+    ]
+    worst = 0.0
+    full = None
+    for name, shape, special in cases:
+        name = f"{name} {shape}"
+        if special:
+            x = quant_special(shape[1])
+        else:
+            scale = torch.rand((shape[0], 1), generator=gen, device=DEVICE) * 10 + 1e-3
+            x = torch.randn(shape, generator=gen, device=DEVICE) * scale
+        before = qz.launches
+        q, s = qz.quantize_int8(x)
+        torch.cuda.synchronize()
+        check(qz.launches == before + 1, f"{name}: the kernel launched once")
+        qp, sp = qz.quantize_int8_plain(x)
+        finite = ~torch.isnan(x).any(dim=1)
+        check(torch.equal(torch.isnan(s), ~finite) and torch.equal(torch.isnan(sp), ~finite),
+              f"{name}: a NaN row, and only it, gets a NaN scale")
+        equal = (torch.equal(q[finite], qp[finite])
+                 and torch.equal(s[finite].view(torch.int32), sp[finite].view(torch.int32)))
+        err = max(float((q[finite].int() - qp[finite].int()).abs().max()) if finite.any() else 0.0,
+                  float((s[finite] - sp[finite]).abs().max()) if finite.any() else 0.0)
+        worst = max(worst, err)
+        check(equal, f"{name}: kernel == plain version bit for bit")
+        line = {"phase": "kernels", "kernel": "quantize_int8", "case": name,
+                "shape": list(x.shape), "equal": equal, "max_abs_err": err,
+                "nan_rows": int((~finite).sum())}
+        if full is None:
+            rows, cols = x.shape
+            nbytes = rows * cols * (4 + 1) + rows * 4
+            ops = 5 * rows * cols  # abs, max, divide, round, clamp a value
+            bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+            ops_ms = 1e3 * ops / PEAK_F32_OPS_PER_S
+            full = {
+                "kernel_ms": median_ms(lambda: qz.quantize_int8(x)),
+                "plain_ms": median_ms(lambda: qz.quantize_int8_plain(x)),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                # torch.quantize_per_channel needs the scales given and
+                # clamps to -128: no single PyTorch call computes this
+                "library_ms": None,
+                "bytes": nbytes, "ops": ops,
+            }
+            line.update(full)
+        line["launches"] = qz.launches
+        emit(line)
+        del x, q, s, qp, sp
+    torch.cuda.empty_cache()
+    full["max_abs_err"] = worst
+    return full
+
+
 def drive_sessions(gw, n_windows: int, *, submit: bool) -> dict:
     """`n_windows` rounds of requests from every session: fleet_stats,
     quantile and a window read each, plus (if `submit`) one sketch-payload
@@ -273,6 +360,131 @@ def phase_serve(sk) -> dict:
         served=dict(sorted(gw.served.items())),
         checked_vehicles=16,
     )
+    return out, gw
+
+
+def fed_model(seed: int) -> dict:
+    """A full-size model, made on the card from a seed: LAYERS
+    least-squares layers of (WIDTH, WIDTH), QUANT_ROWS * QUANT_COLS
+    parameters."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return {f"layer{i:02d}": torch.randn((WIDTH, WIDTH), generator=gen, device=DEVICE) * 0.01
+            for i in range(LAYERS)}
+
+
+def fed_batch(seed: int) -> tuple:
+    """One vehicle's batch for `fed_loss`: inputs (64, WIDTH) and one
+    target block a layer."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (torch.randn((64, WIDTH), generator=gen, device=DEVICE),
+            torch.randn((LAYERS, 64, WIDTH), generator=gen, device=DEVICE))
+
+
+def fed_loss(p: dict, batch: tuple) -> torch.Tensor:
+    x, y = batch
+    return sum(torch.mean((x @ p[k] - y[i]) ** 2) for i, k in enumerate(sorted(p)))
+
+
+def phase_federated(gw, qz) -> dict:
+    """The federated round at full size, on the serve world's 100 000
+    vehicles: one analyst session submits FED_ROUNDS rounds through the
+    gateway (each on every online vehicle, its uploads aggregated on the
+    card by `aggregate_packed`) while the other sessions read, under the
+    profiler; then `client_delta` + `aggregate_deltas` with the int8
+    codec on a full-size model delta, which runs the int8 kernel."""
+    from repro_torch.fleet import compression, federated, rounds
+
+    sess = gw.session("fed-analyst")
+    round_s, bodies = [], []
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if DEVICE == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(FED_ROUNDS):
+            t1 = time.perf_counter()
+            ticket = sess.submit_round(dim=FED_DIM)
+            reads = [gw.session(f"analyst-{s}").fleet_stats(SIGNAL) for s in range(4)]
+            gw.run_until_idle()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t1)
+            check(ticket.done and ticket.response.ok, f"round answered ok: {ticket.response}")
+            check(all(r.done and r.response.ok for r in reads), "reads beside the round ok")
+            body = ticket.response.body
+            check(body["participants"] > 0 and np.isfinite(body["dist_to_optimum"])
+                  and np.isfinite(body["mean_client_loss"]), f"round {body['round']}: finite")
+            bodies.append(body)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    check([b["round"] for b in bodies] == list(range(FED_ROUNDS)), "rounds numbered in order")
+    check(bodies[-1]["dist_to_optimum"] < bodies[0]["dist_to_optimum"],
+          "the model moved toward the optimum")
+    out = {"rounds": bodies, "round_s": round_s, **device_time(prof, wall_ms)}
+
+    # the server step of the last round, against an f64 sum of the same
+    # uploads and the per-client loop. Any order of summing N f32 terms,
+    # each a product of two roundings, is within (N + 2) * 2^-24 *
+    # sum|terms| of the exact sum (the a-priori bound): both are held to
+    # it, and both errors against the f64 sum are kept.
+    driver = gw._fed["fed-analyst"]
+    msgs = driver.last_msgs
+    weights = np.asarray([float(m.get("n_samples", 1)) for m in msgs], np.float32)
+    t1 = time.perf_counter()
+    got = rounds.aggregate_packed(msgs, weights, device=DEVICE)
+    out["aggregate_packed_wall_ms"] = 1e3 * (time.perf_counter() - t1)
+    q, s, n, _ = rounds.stack_deltas(msgs)
+    out["dequant_mean_device_ms"] = median_ms(
+        lambda: compression.batched_dequant_mean(q, s, weights, device=DEVICE))
+    want = rounds.aggregate_reference(msgs, weights)
+    w64 = weights.astype(np.float64) / weights.astype(np.float64).sum()
+    terms = (w64[:, None] * s.astype(np.float64))[:, :, None] * q.astype(np.float64)
+    truth = terms.sum(axis=0).reshape(-1)[:n]
+    bound = (len(msgs) + 2) * 2.0**-24 * np.abs(terms).sum(axis=0).reshape(-1)[:n]
+    check(got.shape == want.shape == (n,) and np.isfinite(got).all(), "aggregate finite, shape")
+    check(bool((np.abs(got - truth) <= bound).all()), "aggregate_packed vs the f64 sum")
+    check(bool((np.abs(got - want) <= 2 * bound).all()), "aggregate_packed vs aggregate_reference")
+    err_truth = float(np.abs(got - truth).max())
+    err_loop = float(np.abs(got - want).max())
+    out.update(aggregate_clients=len(msgs), aggregate_err_vs_f64=err_truth,
+               aggregate_err_vs_reference=err_loop,
+               reference_err_vs_f64=float(np.abs(want - truth).max()),
+               aggregate_max_abs=float(np.abs(truth).max()),
+               aggregate_bound_max=float(bound.max()))
+    del q, s, terms
+
+    # the codec on a full-size delta: two vehicles' local SGD, one through
+    # error feedback; the kernel runs once for each upload. FedAvg's step
+    # lowers the weighted objective of the two vehicles.
+    params = fed_model(SEED + 2)
+    batches = [fed_batch(SEED + 3), fed_batch(SEED + 4)]
+    weights = [1.0, 3.0]
+    cfg = federated.FedConfig(local_steps=2, local_lr=0.05, server_lr=1.0, codec="int8")
+    before = qz.launches
+    t1 = time.perf_counter()
+    ef = compression.ErrorFeedback(compression.Int8Codec())
+    deltas = [federated.client_delta(fed_loss, params, batches[0], cfg, ef),
+              federated.client_delta(fed_loss, params, batches[1], cfg, None)]
+    new = federated.aggregate_deltas(params, deltas, cfg, weights=weights)
+    torch.cuda.synchronize()
+    out["client_delta_and_aggregate_s"] = time.perf_counter() - t1
+    check(qz.launches == before + 2, "client_delta launched the int8 kernel once per upload")
+    msg = deltas[0]["msg"]
+    check(tuple(msg["q"].shape) == (QUANT_ROWS, QUANT_COLS), "full-size upload")
+    # |delta - q*s| <= s/2, plus 1e-4 of a step for the f32 rounding of q*s
+    half_step = (msg["s"] * 0.5001)[:, None]
+    check(bool((ef._residual.reshape(QUANT_ROWS, QUANT_COLS).abs() <= half_step).all()),
+          "int8 upload within half a step of the delta")
+    check(all(bool(torch.isfinite(v).all()) for v in new.values()), "aggregated model finite")
+
+    def objective(p):
+        return sum(w * float(fed_loss(p, b)) for w, b in zip(weights, batches)) / sum(weights)
+
+    loss0, loss1 = objective(params), objective(new)
+    check(loss1 < loss0, f"the aggregated model lowers the loss: {loss0} -> {loss1}")
+    out.update(full_size_params=sum(v.numel() for v in params.values()),
+               upload_bytes=compression.Int8Codec().nbytes(msg),
+               compression_ratio=ef.compression_ratio, loss_before=loss0, loss_after=loss1)
+    del params, batches, deltas, new, ef, msg
+    torch.cuda.empty_cache()
     return out
 
 
@@ -282,6 +494,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import sketch as sk
 
     smi = nvidia_smi()
@@ -290,34 +503,57 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    built = _build.build("sketch_fold")
-    ptxas = [ln.strip() for ln in _build.build_log("sketch_fold").splitlines()
-             if "registers" in ln or "spill" in ln]
+    built = _build.build("sketch_fold", "quantize_int8")  # one nvcc each, together
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln] for name in built}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_s": built,
           "ptxas": ptxas})
 
-    main_case = phase_kernels(sk)
+    sketch_case = phase_kernels(sk)
+    quant_case = phase_quantize(qz)
 
-    sk.launches = 0  # count only the main path's launches
-    serve = phase_serve(sk)
-    launches = sk.launches
-    check(launches > 0, "the serve path launched the sketch-fold kernel")
-    serve["sketch_fold_launches"] = launches
+    sk.launches = 0  # count only the serve path's launches
+    serve, gw = phase_serve(sk)
+    sketch_launches = sk.launches
+    check(sketch_launches > 0, "the serve path launched the sketch-fold kernel")
+    serve["sketch_fold_launches"] = sketch_launches
     emit({"phase": "serve", **serve})
 
-    emit({"kernels": [{
-        "name": "sketch_fold",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/sketch_fold.cu",
-        "replaces": "src/repro/kernels/sketch.py:274",
-        "launches": launches,
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["kernel_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]})
+    qz.launches = 0  # count only the federated path's launches
+    fed = phase_federated(gw, qz)
+    quant_launches = qz.launches
+    check(quant_launches > 0, "the federated path launched the int8 kernel")
+    fed["quantize_int8_launches"] = quant_launches
+    emit({"phase": "federated", **fed})
+
+    emit({"kernels": [
+        {
+            "name": "sketch_fold",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sketch_fold.cu",
+            "replaces": "src/repro/kernels/sketch.py:274",
+            "launches": sketch_launches,
+            "max_abs_err": sketch_case["max_abs_err"],
+            "ms": sketch_case["kernel_ms"],
+            "plain_ms": sketch_case["plain_ms"],
+            "bound_ms": sketch_case["bound_ms"],
+            "bound_by": sketch_case["bound_by"],
+            "library_ms": sketch_case["library_ms"],
+        },
+        {
+            "name": "quantize_int8",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",
+            "replaces": "src/repro/kernels/quantize.py:21",
+            "launches": quant_launches,
+            "max_abs_err": quant_case["max_abs_err"],
+            "ms": quant_case["kernel_ms"],
+            "plain_ms": quant_case["plain_ms"],
+            "bound_ms": quant_case["bound_ms"],
+            "bound_by": quant_case["bound_by"],
+            "library_ms": quant_case["library_ms"],
+        },
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,10 +22,13 @@ import math
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core.documents import TaskStatus
 from repro_torch.core.user import AssignmentDoc, User
-from repro_torch.fleet.federated import FEDERATED_PENDING, FedConfig
+from repro_torch.device import resolve_device
+from repro_torch.fleet.compression import Int8Codec, batched_dequant_mean
+from repro_torch.fleet.federated import FedConfig
 
 
 # --------------------------------------------------------------------- #
@@ -182,10 +185,17 @@ def pump_until_deadline(
 # --------------------------------------------------------------------- #
 # wire format: int8 delta <-> JSON-safe dict                             #
 # --------------------------------------------------------------------- #
-def pack_delta(flat: np.ndarray, row: int = 4096) -> dict[str, Any]:
-    """int8-quantize a flat delta for the wire (the int8 codec kernel
-    comes with the federated slice of the port)."""
-    raise NotImplementedError(FEDERATED_PENDING)
+def pack_delta(flat, row: int = 4096, *, device="cuda") -> dict[str, Any]:
+    """int8-quantize a flat delta for the wire with `Int8Codec` on
+    `device` (the hand-written kernel on the card)."""
+    x = torch.as_tensor(flat, dtype=torch.float32, device=resolve_device(device))
+    msg = Int8Codec(row=row).encode(x)
+    return {
+        "q": base64.b64encode(msg["q"].cpu().numpy().tobytes()).decode(),
+        "s": [float(v) for v in msg["s"].cpu().numpy()],
+        "n": msg["n"],
+        "row": row,
+    }
 
 
 def unpack_delta(msg: dict[str, Any]) -> np.ndarray:
@@ -198,7 +208,7 @@ def unpack_delta(msg: dict[str, Any]) -> np.ndarray:
 
 # --------------------------------------------------------------------- #
 # vectorized aggregation: stack every client's packed delta, dequantize  #
-# and weighted-sum in one batched op                                     #
+# and weighted-sum in one batched op on the device                       #
 # --------------------------------------------------------------------- #
 def stack_deltas(
     msgs: list[dict[str, Any]]
@@ -217,13 +227,17 @@ def stack_deltas(
 
 
 def aggregate_packed(
-    msgs: list[dict[str, Any]], weights: np.ndarray | None = None
+    msgs: list[dict[str, Any]], weights: np.ndarray | None = None, *, device="cuda"
 ) -> np.ndarray:
     """FedAvg server step over packed int8 deltas via the batched path
-    (`repro.fleet.compression.batched_dequant_mean` in the JAX package):
-    one contraction over the client axis instead of a per-client Python
-    loop. Comes with the federated slice of the port."""
-    raise NotImplementedError(FEDERATED_PENDING)
+    (`repro_torch.fleet.compression.batched_dequant_mean`): one
+    contraction over the client axis on `device` instead of a per-client
+    Python loop."""
+    stacked = stack_deltas(msgs)
+    if stacked is None:  # heterogeneous shapes: per-client reference path
+        return aggregate_reference(msgs, weights)
+    q, s, n, _ = stacked
+    return batched_dequant_mean(q, s, weights, device=device).reshape(-1)[:n]
 
 
 def aggregate_reference(
@@ -320,9 +334,12 @@ class FederatedDriver:
         engine: Any = None,
         status_oracle: bool = False,
         metrics: Any = None,
+        device: str | torch.device = "cuda",
     ):
         self.user = user
         self.cfg = cfg
+        #: where the server step (`aggregate_packed`) runs
+        self.device = device
         #: unified event engine: round deadlines become heap entries
         self.engine = engine
         #: True = close rounds on dense statuses() scans (parity oracle)
@@ -413,7 +430,7 @@ class FederatedDriver:
                 [float(m.get("n_samples", 1)) for m in msgs], np.float32
             )
             # batched path: one fused dequant + weighted-sum over clients
-            mean_delta = aggregate_packed(msgs, weights)
+            mean_delta = aggregate_packed(msgs, weights, device=self.device)
             self.w = self.w + self.cfg.server_lr * mean_delta
         rec = {
             "round": rnd,

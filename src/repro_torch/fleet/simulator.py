@@ -42,10 +42,8 @@ still work as overrides.
 
 Everything observable is a deterministic function of `SimConfig`
 (including the seed): same config => same event interleaving => same
-results, bit-for-bit.
-
-`run_federated` is the next slice of the port and raises
-`NotImplementedError`; `run_analytics` and the gateway work.
+results, bit-for-bit. `run_federated` aggregates each round on
+`SimConfig.device`.
 """
 from __future__ import annotations
 
@@ -66,7 +64,7 @@ from repro_torch.fleet.analytics import AnalyticsConfig, AnalyticsDriver
 from repro_torch.fleet.churn import make_churn
 from repro_torch.fleet.elastic import FleetPool
 from repro_torch.fleet.engine import CalendarService, EngineService, EventEngine
-from repro_torch.fleet.federated import FEDERATED_PENDING, FedConfig
+from repro_torch.fleet.federated import FedConfig
 from repro_torch.fleet.metrics import FleetMetrics, RoundMetrics
 from repro_torch.fleet.rounds import FederatedDriver
 from repro_torch.fleet.scenarios import build_plane
@@ -443,11 +441,68 @@ class FleetSimulator:
     # ------------------------------------------------------------------ #
     # federated-learning campaign                                        #
     # ------------------------------------------------------------------ #
-    def run_federated(self, fed: FedConfig, **kwargs) -> FederatedDriver:
-        """Run FedAvg rounds over the simulated fleet. Not ported yet:
-        raises `NotImplementedError` (the federated round, with the int8
-        codec kernel and local SGD, is the next slice of the port)."""
-        raise NotImplementedError(FEDERATED_PENDING)
+    def run_federated(
+        self,
+        fed: FedConfig,
+        *,
+        dim: int = 32,
+        w_true: np.ndarray | None = None,
+        rounds: int = 5,
+        n_samples: int = 32,
+        driver: FederatedDriver | None = None,
+        on_round: Callable[[int, FederatedDriver], None] | None = None,
+    ) -> FederatedDriver:
+        """Run `rounds` FedAvg rounds over the simulated fleet, recording
+        per-round `RoundMetrics`. Returns the driver (final model in
+        `driver.w`, per-round records in `driver.history`).
+
+        Pass a `driver` to run `rounds` MORE rounds, continuing the
+        numbering where its history left off. `on_round(rnd, driver)`
+        fires after each round is recorded."""
+        start = 0
+        if driver is None:
+            if w_true is None:
+                w_true = np.sin(np.linspace(0.0, 3.0, dim)).astype(np.float32)
+            driver = FederatedDriver(
+                self.user,
+                fed,
+                dim=dim,
+                w_true=w_true,
+                n_samples=n_samples,
+                engine=self.engine,
+                status_oracle=self.engine is None,
+                metrics=self.metrics,
+                device=self.device,
+            )
+        else:
+            start = len(driver.history)
+        for rnd in range(start, start + rounds):
+            online = len(self.pool.online())
+            t0, tick0 = time.perf_counter(), self.t
+            pub0, del0, drop0 = (
+                self.broker.published,
+                self.broker.delivered,
+                self.broker.dropped,
+            )
+            rec = driver.run_round(rnd, pump=self.tick)
+            self.metrics.record(
+                RoundMetrics(
+                    round=rnd,
+                    online_at_start=online,
+                    participants=rec["participants"],
+                    canceled=rec["canceled"],
+                    ticks=self.t - tick0,
+                    published=self.broker.published - pub0,
+                    delivered=self.broker.delivered - del0,
+                    dropped=self.broker.dropped - drop0,
+                    wall_s=time.perf_counter() - t0,
+                    mean_client_loss=rec["mean_client_loss"],
+                    dist_to_optimum=rec["dist_to_optimum"],
+                )
+            )
+            if on_round is not None:
+                on_round(rnd, driver)
+        return driver
 
     # ------------------------------------------------------------------ #
     # streaming-analytics campaign (the paper's data-analytics use case)  #

@@ -1,4 +1,8 @@
-"""Fleet-scale sketch merges, batched over the client axis.
+"""Public kernel entry points and the fleet-scale sketch merges.
+
+`quantize_int8` / `dequantize_int8` are the int8 codec of
+`repro_torch.kernels.quantize` (the hand-written CUDA kernel on a CUDA
+tensor, its plain PyTorch version on a CPU tensor).
 
 `merge_moments` / `merge_histograms` / `merge_quantile_sketches` fuse
 every vehicle's streaming-analytics sketch into the fleet aggregate with
@@ -13,6 +17,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
+
+__all__ = [
+    "dequantize_int8", "merge_histograms", "merge_moments",
+    "merge_quantile_sketches", "quantize_int8",
+]
 
 
 def _f32(a, device) -> torch.Tensor:

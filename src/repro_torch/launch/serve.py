@@ -3,10 +3,9 @@
 Boots a `FleetSimulator` whose signal ring lives on `--device` (the card
 by default), opens `--sessions` concurrent analyst sessions against it
 through `repro_torch.serve.FleetGateway`, replays a deterministic request
-mix (fleet gauges, windowed statistics, quantile queries, analytics
-windows, and federated rounds, which the port answers with its
-not-ported-yet error), and prints every response plus the latency
-summary. Everything is a function of --seed and the request trace:
+mix (fleet gauges, windowed statistics, quantile queries, federated
+rounds and analytics windows), and prints every response plus the
+latency summary. Everything is a function of --seed and the request trace:
 re-running prints byte-identical response bodies.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --clients 1024 --sessions 4

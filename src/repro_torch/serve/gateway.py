@@ -30,18 +30,17 @@ Architecture — a deterministic request plane on top of the event engine:
   `WindowStats`-style merge on the simulator's device. The ring never
   crosses device->host for these reads; only the sketch block does.
 
-* **Submissions** (analytics windows, fused-sketch windows) commit a
-  real assignment at admission and arm a
+* **Submissions** (federated rounds, analytics windows, fused-sketch
+  windows) commit a real assignment at admission and arm a
   `DeadlinePump` whose `pump` is a **no-op**: the gateway never advances
   the world from inside a request. Instead `FleetGateway.tick()` runs
   one `FleetSimulator.tick()` and then *settles* — one no-pump
   `DeadlinePump.step()` per in-flight submission, in admission order —
   so quorum/deadline checks happen exactly once per tick boundary and
   many assignments from many analysts progress concurrently over the
-  same fleet. When a pump closes, the driver's finish path (the sketch
-  merge) runs and the deferred response completes. Federated rounds
-  (`submit_round`) are the next slice of the port: they are answered at
-  admission with ``ok=False`` and the `NotImplementedError` message.
+  same fleet. When a pump closes, the driver's finish path (aggregate /
+  sketch merge, on the simulator's device) runs and the deferred
+  response completes.
 
 Determinism contract: reads never
 perturb the world (a read-only trace leaves the simulator bit-identical
@@ -59,7 +58,8 @@ import numpy as np
 
 from repro_torch.fleet.analytics import AnalyticsConfig, AnalyticsDriver
 from repro_torch.fleet.engine import PHASE_ADMIT
-from repro_torch.fleet.federated import FEDERATED_PENDING
+from repro_torch.fleet.federated import FedConfig
+from repro_torch.fleet.rounds import FederatedDriver
 from repro_torch.kernels.ops import (
     merge_histograms,
     merge_moments,
@@ -264,6 +264,10 @@ class FleetGateway:
         self._by_seq: dict[int, _InFlight] = {}
         self._seq = 0
         self._admit_armed = False
+        #: per-session FedAvg drivers: rounds submitted by one analyst
+        #: continue that analyst's global model (`driver.w`)
+        self._fed: dict[str, FederatedDriver] = {}
+        self._fed_next_round: dict[str, int] = {}
         self._window_seq: dict[str, int] = {}
         #: per-tick merged fleet statistics, keyed like the plane's fold
         #: cache: (plane tick, fleet size, signal, spec) — see _fleet_stats
@@ -329,9 +333,8 @@ class FleetGateway:
                 getattr(self, f"_start_{req.kind}")(ticket)
             else:
                 raise ValueError(f"unknown request kind {req.kind!r}")
-        except (KeyError, ValueError, TypeError, NotImplementedError) as e:
-            # a service answers bad requests (and requests for what is not
-            # ported yet), it doesn't crash the world
+        except (KeyError, ValueError, TypeError) as e:
+            # a service answers bad requests, it doesn't crash the world
             self._complete(ticket, ok=False, body={"error": str(e)})
 
     def _complete(self, ticket: Ticket, *, ok: bool, body: dict) -> None:
@@ -519,9 +522,46 @@ class FleetGateway:
     # submission handlers (deferred responses)                           #
     # ------------------------------------------------------------------ #
     def _start_submit_round(self, ticket: Ticket) -> None:
-        """Federated rounds are the next slice of the port: the request is
-        answered at admission with the `NotImplementedError` message."""
-        raise NotImplementedError(FEDERATED_PENDING)
+        req = ticket.request
+        p = req.params
+        driver = self._fed.get(req.session)
+        if driver is None:
+            dim = int(p.get("dim", 32))
+            w_true = np.sin(np.linspace(0.0, 3.0, dim)).astype(np.float32)
+            driver = FederatedDriver(
+                self.sim.user,
+                FedConfig(
+                    local_steps=int(p.get("local_steps", 3)),
+                    local_lr=float(p.get("local_lr", 0.2)),
+                    deadline_fraction=float(p.get("deadline_fraction", 0.9)),
+                    deadline_pumps=int(p.get("deadline_pumps", 64)),
+                ),
+                dim=dim,
+                w_true=w_true,
+                n_samples=int(p.get("n_samples", 16)),
+                engine=self.sim.engine,
+                device=self.sim.device,
+            )
+            self._fed[req.session] = driver
+            self._fed_next_round[req.session] = 0
+        rnd = self._fed_next_round[req.session]
+        self._fed_next_round[req.session] = rnd + 1
+        rif = driver.start_round(rnd, pump=_noop)
+        inf = _InFlight(ticket, driver, rif, self._finish_round)
+        self._inflight.append(inf)
+        self._by_seq[req.seq] = inf
+
+    def _finish_round(self, inf: _InFlight) -> None:
+        rec = inf.driver.finish_round(inf.rif)
+        body = {
+            "round": rec["round"],
+            "participants": rec["participants"],
+            "canceled": rec["canceled"],
+            "pumps": rec["pumps"],
+            "mean_client_loss": rec["mean_client_loss"],
+            "dist_to_optimum": rec["dist_to_optimum"],
+        }
+        self._complete(inf.ticket, ok=True, body=body)
 
     def _start_submit_window(self, ticket: Ticket) -> None:
         req = ticket.request

@@ -11,9 +11,10 @@ import pytest
 import torch
 
 from repro.fleet.analytics import AnalyticsConfig as RefAnalyticsConfig
+from repro.fleet.federated import FedConfig as RefFedConfig
 from repro.fleet.simulator import FleetSimulator as RefSimulator
 from repro.fleet.simulator import SimConfig as RefSimConfig
-from repro_torch.fleet import FEDERATED_PENDING, FedConfig
+from repro_torch.fleet import FedConfig
 from repro_torch.fleet.analytics import AnalyticsConfig
 from repro_torch.fleet.scenarios import Scenario, build_plane
 from repro_torch.fleet.simulator import FleetSimulator, SimConfig
@@ -85,9 +86,18 @@ def test_sketch_payload_equals_the_window_payload():
 
 
 def test_run_federated_raises_the_named_error():
+    """A bad argument to `run_federated` is refused as the JAX package
+    refuses it: `dim="x"` raises the same exception type with the same
+    message (numpy's `linspace` TypeError), before any round runs."""
+    ref = RefSimulator(RefSimConfig(n_clients=4))
+    with pytest.raises(TypeError) as want:
+        ref.run_federated(RefFedConfig(), dim="x", rounds=1)
     sim = FleetSimulator(SimConfig(n_clients=4, device="cpu"))
-    with pytest.raises(NotImplementedError, match=FEDERATED_PENDING):
-        sim.run_federated(FedConfig(), rounds=1)
+    with pytest.raises(TypeError) as got:
+        sim.run_federated(FedConfig(), dim="x", rounds=1)
+    assert type(got.value) is type(want.value)
+    assert str(got.value) == str(want.value)
+    assert sim.t == ref.t == 0
 
 
 def test_unported_scenarios_and_planes_raise():

@@ -1,12 +1,18 @@
 """The port's analyst gateway (`repro_torch.serve`) against the JAX
-package's, over one request trace on the road-grade scenario with churn
-and broker faults.
+package's, over request traces on the road-grade scenario with churn
+and broker faults: one of reads and analytics windows, one that mixes
+federated rounds with reads.
 
 Tolerances: every response equals the reference's field for field, except
 the merged mean and variance (f32 sums whose order differs between XLA
-and torch), which agree to 1e-6 relative. Two runs of the port give
-byte-identical `GatewayResponse.encode()` streams.
+and torch), which agree to 1e-6 relative, and a round's
+`dist_to_optimum` and `mean_client_loss` (its model comes out of an f32
+contraction over the clients in another order), which agree to 1e-5 and
+1e-4 relative. Two runs of the port give byte-identical
+`GatewayResponse.encode()` streams.
 """
+import json
+
 import pytest
 
 from repro.fleet.simulator import FleetSimulator as RefSimulator
@@ -80,19 +86,78 @@ def test_replay_is_byte_identical():
     assert runs[0] == runs[1]
 
 
-def test_submit_round_is_answered_with_the_named_error_at_admission():
-    gw = port_gateway()
-    t = gw.session("ana").submit_round(dim=8)
+def drive_rounds(gw):
+    """Two sessions: federated rounds in flight at once (one session runs
+    two rounds on its own model), reads of progress, stats and gauges
+    between them."""
+    a, b = gw.session("ana"), gw.session("bob")
+    a.submit_round(dim=8, deadline_pumps=6)
+    slow = b.submit_round(dim=4, local_steps=2, n_samples=8, deadline_fraction=1.0,
+                          deadline_pumps=4)
+    a.fleet_stats(SIGNAL, window=WINDOW)
     gw.tick()
-    assert t.done and not t.response.ok
-    assert t.response.body == {"error": FEDERATED_PENDING}
-    assert t.response.ticks == 1 and gw.idle
+    a.progress(slow)
+    b.gauges()
+    gw.tick()
+    a.submit_round(dim=8, deadline_pumps=6)
+    b.quantile(SIGNAL, 0.5, window=WINDOW)
+    gw.session("cy").submit_round(dim="x")  # a new session's bad model
+    gw.run_until_idle()
+    a.platform()
+    gw.run_until_idle()
+    out = [r for s in gw._sessions.values() for r in s.inbox]
+    return sorted(out, key=lambda r: r.seq)
+
+
+ROUND_TOL = {"mean": 1e-6, "var": 1e-6, "dist_to_optimum": 1e-5, "mean_client_loss": 1e-4}
+
+
+def test_rounds_and_reads_give_the_reference_responses():
+    port, ref = drive_rounds(port_gateway()), drive_rounds(ref_gateway())
+    assert [r.seq for r in port] == [r.seq for r in ref] == list(range(len(ref)))
+    for p, r in zip(port, ref):
+        pd, rd = p.to_dict(), r.to_dict()
+        pb, rb = pd.pop("body"), rd.pop("body")
+        assert pd == rd
+        for key, rel in ROUND_TOL.items():
+            if rb.get(key) is not None:
+                assert pb.pop(key) == pytest.approx(rb.pop(key), rel=rel), (r.kind, key)
+        assert pb == rb, r.kind
+    done = [r.body for r in port if r.kind == "submit_round" and r.ok]
+    assert [b["round"] for b in done] == [0, 0, 1] and all(b["participants"] for b in done)
+    assert [r.kind for r in port if not r.ok] == ["submit_round"]
+
+
+def test_replay_with_rounds_is_byte_identical():
+    runs = [[r.encode() for r in drive_rounds(port_gateway())] for _ in range(2)]
+    assert runs[0] == runs[1]
+
+
+def test_submit_round_is_answered_with_the_named_error_at_admission():
+    """A bad `submit_round` (`dim="x"`) is answered at admission, after one
+    tick and with the gateway idle, with ``ok=False`` and the same
+    ``{"error": ...}`` body as the JAX gateway gives."""
+    bodies = []
+    for gw in (port_gateway(), ref_gateway()):
+        t = gw.session("ana").submit_round(dim="x")
+        gw.tick()
+        assert t.done and not t.response.ok
+        assert t.response.ticks == 1 and gw.idle
+        bodies.append(t.response.body)
+    assert bodies[0] == bodies[1]
+    assert bodies[0] == {"error": "invalid literal for int() with base 10: 'x'"}
 
 
 def test_serve_cli_on_the_cpu(capsys):
+    """The CLI's request mix on the CPU: every line is a response, the
+    federated rounds among them are answered ok, and none carries the
+    port's not-ported error."""
     from repro_torch.launch import serve
 
     serve.main(["--clients", "16", "--sessions", "2", "--rounds", "1", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2 * 6 + 1 and lines[-1].startswith("-- 12 responses")
-    assert sum(FEDERATED_PENDING in ln for ln in lines) == 2
+    assert sum(FEDERATED_PENDING in ln for ln in lines) == 0
+    rounds = [r for r in map(json.loads, lines[:-1]) if r["kind"] == "submit_round"]
+    assert len(rounds) == 2 and all(r["ok"] for r in rounds)
+    assert all(r["body"]["participants"] > 0 for r in rounds)

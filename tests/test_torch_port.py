@@ -1,8 +1,8 @@
 """Ground rules of the PyTorch port, checked from outside the package.
 
-* Running the port loads no JAX: a simulation served through the gateway
-  runs in a fresh subprocess (this pytest process has JAX loaded already)
-  and reports `sys.modules`.
+* Running the port loads no JAX: a simulation with an analytics window, a
+  federated round and a gateway read runs in a fresh subprocess (this
+  pytest process has JAX loaded already) and reports `sys.modules`.
 * No source file of the port, and not `chip_smoke.py`, imports `jax` or
   anything of the JAX package `repro`.
 * `chip_smoke.py` exits non-zero and prints no result without CUDA, and
@@ -24,11 +24,15 @@ FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?
 RUN_PORT = """
 import sys
 from repro_torch.fleet.analytics import AnalyticsConfig
+from repro_torch.fleet.federated import FedConfig
 from repro_torch.fleet.simulator import FleetSimulator, SimConfig
+from repro_torch.launch import fleet
 from repro_torch.serve import FleetGateway
 
 sim = FleetSimulator(SimConfig(n_clients=12, p_leave=0.05, p_return=0.3, device="cpu"))
 sim.run_analytics(AnalyticsConfig(sketch=True, window=8), windows=1, warmup_ticks=4)
+fed = sim.run_federated(FedConfig(local_steps=2, deadline_pumps=8), dim=8, rounds=1, n_samples=8)
+assert fed.history[0]["participants"] > 0
 gw = FleetGateway(sim)
 t = gw.session("ana").fleet_stats("Vehicle.FuelRate", window=8)
 gw.run_until_idle()
