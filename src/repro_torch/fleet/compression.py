@@ -10,13 +10,16 @@ budget, adapted to distributed learning).
   which keeps SGD convergent under aggressive compression.
 
 Everything operates on flat f32 tensors; `flatten_pytree` /
-`unflatten_pytree` adapt parameter trees (dicts, lists and tuples of
-tensors) and order their leaves as `jax.tree.flatten` does, dict keys
-sorted, so a flat vector means the same thing in both packages.
+`unflatten_pytree` adapt parameter trees (dicts, lists, tuples and
+namedtuples of tensors) and order their leaves as `jax.tree.flatten`
+does: a plain dict by sorted key, an `OrderedDict` (a `state_dict()`) in
+insertion order. So a flat vector means the same thing in both packages,
+and a tree comes back with its own container types.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Any, Callable
 
 import numpy as np
@@ -32,20 +35,27 @@ from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
 @dataclasses.dataclass(frozen=True)
 class TreeDef:
     """The structure of a parameter tree: `kind` is "dict", "list",
-    "tuple", "none" or "leaf"; `keys` are a dict's sorted keys."""
+    "tuple", "none" or "leaf"; `keys` are a dict's keys in leaf order;
+    `cls` is a dict's type (`dict` or `OrderedDict`) or a namedtuple's."""
 
     kind: str
     keys: tuple = ()
     children: tuple = ()
+    cls: type | None = None
 
 
 def _flatten(tree: Any, leaves: list) -> TreeDef:
     if isinstance(tree, dict):
-        keys = tuple(sorted(tree))
-        return TreeDef("dict", keys, tuple(_flatten(tree[k], leaves) for k in keys))
-    if isinstance(tree, (list, tuple)):
-        kind = "list" if isinstance(tree, list) else "tuple"
-        return TreeDef(kind, (), tuple(_flatten(t, leaves) for t in tree))
+        # jax keeps an OrderedDict's insertion order and sorts any other dict
+        ordered = isinstance(tree, OrderedDict)
+        keys = tuple(tree) if ordered else tuple(sorted(tree))
+        return TreeDef("dict", keys, tuple(_flatten(tree[k], leaves) for k in keys),
+                       OrderedDict if ordered else dict)
+    if isinstance(tree, list):
+        return TreeDef("list", (), tuple(_flatten(t, leaves) for t in tree))
+    if isinstance(tree, tuple):
+        named = type(tree) if hasattr(type(tree), "_fields") else None
+        return TreeDef("tuple", (), tuple(_flatten(t, leaves) for t in tree), named)
     if tree is None:
         return TreeDef("none")
     leaves.append(tree)
@@ -59,8 +69,10 @@ def _unflatten(td: TreeDef, leaves) -> Any:
         return None
     children = [_unflatten(c, leaves) for c in td.children]
     if td.kind == "dict":
-        return dict(zip(td.keys, children))
-    return children if td.kind == "list" else tuple(children)
+        return td.cls(zip(td.keys, children))
+    if td.kind == "list":
+        return children
+    return td.cls(*children) if td.cls else tuple(children)
 
 
 def tree_leaves(tree: Any) -> list:
@@ -128,7 +140,17 @@ class TopKCodec:
     def encode(self, flat: torch.Tensor) -> dict[str, Any]:
         n = flat.shape[0]
         k = max(1, int(n * self.fraction))
-        idx = torch.topk(torch.abs(flat), k).indices
+        # jax.lax.top_k puts the largest first and, among equal
+        # magnitudes, the lowest index first. torch.topk breaks ties its
+        # own way, so it only finds the k-th magnitude: every entry above
+        # it is kept, then the lowest-indexed entries equal to it, and only
+        # the k kept ones are sorted (stably, so ties stay in index order)
+        mag = torch.abs(flat)
+        kth = torch.topk(mag, k, sorted=False).values.min()
+        above = torch.nonzero(mag > kth).squeeze(1)
+        tied = torch.nonzero(mag == kth).squeeze(1)[: k - above.shape[0]]
+        order = torch.sort(mag[above], descending=True, stable=True).indices
+        idx = torch.cat([above[order], tied])
         return {"kind": "topk", "idx": idx.to(torch.int32), "val": flat[idx], "n": n}
 
     def decode(self, msg: dict[str, Any]) -> torch.Tensor:

@@ -1,5 +1,10 @@
 """Public kernel entry points and the fleet-scale sketch merges.
 
+`flash_attention` is the GQA causal / sliding-window attention of
+`repro_torch.kernels.flash_attention` (the hand-written CUDA kernel on a
+CUDA tensor, its plain PyTorch version on a CPU tensor); the model's
+attention layers call it unless given another `attn_impl`.
+
 `quantize_int8` / `dequantize_int8` are the int8 codec of
 `repro_torch.kernels.quantize` (the hand-written CUDA kernel on a CUDA
 tensor, its plain PyTorch version on a CPU tensor).
@@ -17,10 +22,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
 
 __all__ = [
-    "dequantize_int8", "merge_histograms", "merge_moments",
+    "dequantize_int8", "flash_attention", "merge_histograms", "merge_moments",
     "merge_quantile_sketches", "quantize_int8",
 ]
 

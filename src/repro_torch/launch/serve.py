@@ -11,7 +11,13 @@ re-running prints byte-identical response bodies.
     PYTHONPATH=src python -m repro_torch.launch.serve --clients 1024 --sessions 4
     PYTHONPATH=src python -m repro_torch.launch.serve --clients 64 --device cpu
 
-The JAX package's `--llm` mode is not ported (ROADMAP queue 1).
+`--llm` switches to the LLM serving path: a continuous-batching
+`ServeEngine` over a decoder with random weights made from --seed (the
+tiny same-family variant of --arch, or its full config with --full), on
+--device, with the flash-attention kernel as the prefill's core on the card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --llm --arch qwen3-4b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --llm --device cpu
 """
 from __future__ import annotations
 
@@ -24,13 +30,17 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--llm", action="store_true",
+                    help="serve an LLM (ServeEngine) instead of the fleet")
+    # -- fleet gateway mode -------------------------------------------- #
     ap.add_argument("--clients", type=int, default=256)
     ap.add_argument("--sessions", type=int, default=4,
                     help="concurrent analyst sessions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scenario", default="road-grade")
     ap.add_argument("--device", default="cuda",
-                    help="where the signal ring and the sketch fold run")
+                    help="where the signal ring and the sketch fold, or the "
+                         "LLM, run")
     ap.add_argument("--signal", default="Vehicle.FuelRate")
     ap.add_argument("--warmup-ticks", type=int, default=16,
                     help="world ticks before the first request")
@@ -46,6 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-tick ignition-on probability")
     ap.add_argument("--stragglers", type=float, default=0.0,
                     help="fraction of slow clients")
+    # -- LLM mode ------------------------------------------------------ #
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--batch-size", type=int, default=4)
     return ap
 
 
@@ -98,8 +115,42 @@ def _fleet_main(args: argparse.Namespace) -> None:
     )
 
 
+def _llm_main(args: argparse.Namespace) -> None:
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.device import resolve_device
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import Request, ServeEngine, serve_loop
+
+    cfg = get_config(args.arch) if args.full else get_tiny(args.arch)
+    gen = torch.Generator(device=resolve_device(args.device)).manual_seed(args.seed)
+    params = init_params(cfg, gen)
+    engine = ServeEngine(cfg, params, cache_len=args.cache_len)
+    rng = np.random.default_rng(args.seed)
+    reqs = [
+        Request(
+            f"req-{i}",
+            rng.integers(0, cfg.vocab_size, (int(rng.integers(8, 48)),)),
+            max_new_tokens=args.max_new,
+        )
+        for i in range(args.requests)
+    ]
+    t0 = time.perf_counter()
+    results = serve_loop(engine, reqs, batch_size=args.batch_size)
+    dt = time.perf_counter() - t0
+    tok = sum(len(v) for v in results.values())
+    print(f"{len(reqs)} requests -> {tok} tokens in {dt:.2f}s ({tok/dt:.1f} tok/s)")
+    for rid in sorted(results):
+        print(rid, results[rid])
+
+
 def main(argv: list[str] | None = None) -> None:
-    _fleet_main(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.llm:
+        _llm_main(args)
+    else:
+        _fleet_main(args)
 
 
 if __name__ == "__main__":

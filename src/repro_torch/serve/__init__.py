@@ -1,5 +1,6 @@
-"""Serving: the fleet analyst gateway (`repro_torch.serve.gateway`).
-The LLM serving engine is not ported yet (ROADMAP queue 1)."""
+"""Serving: the fleet analyst gateway (`repro_torch.serve.gateway`) and the
+LLM serving engine (`repro_torch.serve.engine`)."""
+from repro_torch.serve.engine import Request, ServeEngine, serve_loop
 from repro_torch.serve.gateway import (
     AnalystSession,
     FleetGateway,
@@ -10,5 +11,5 @@ from repro_torch.serve.gateway import (
 
 __all__ = [
     "AnalystSession", "FleetGateway", "GatewayRequest", "GatewayResponse",
-    "Ticket",
+    "Request", "ServeEngine", "Ticket", "serve_loop",
 ]

@@ -4,12 +4,18 @@
 Tolerances: the int8 and null codecs are bitwise equal in both directions
 (the same per-row absmax, IEEE division and round-half-to-even); top-k on
 distinct magnitudes selects the same index set and decodes bitwise equal
-(the order of the indices may differ). `flatten_pytree` gives the same
-flat vector, leaves in `jax.tree.flatten`'s order (dict keys sorted).
+(the order of the indices may differ); on tied magnitudes it selects
+and orders the indices as `jax.lax.top_k` does, bitwise. `flatten_pytree`
+gives the same flat vector, leaves in `jax.tree.flatten`'s order (a
+dict's keys sorted, an `OrderedDict`'s in insertion order), and a
+namedtuple comes back as its own type.
 Error feedback carries its residual bitwise for three steps.
 `batched_dequant_mean` is one f32 contraction over the client axis whose
 summation order differs between XLA and torch: rtol 1e-6, atol 1e-7.
 """
+from collections import OrderedDict, namedtuple
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,6 +65,28 @@ def test_topk_codec_selects_the_same_entries():
     assert codec.nbytes(msg) == ref_codec.nbytes(ref_msg)
 
 
+def test_topk_codec_breaks_ties_as_lax_top_k():
+    rng = np.random.default_rng(5)
+    x = (rng.choice([1.0, 2.0, 3.0], 2000) * rng.choice([-1.0, 1.0], 2000) / 8).astype(np.float32)
+    codec, ref_codec = c.TopKCodec(fraction=0.03), ref_c.TopKCodec(fraction=0.03)
+    msg, ref_msg = codec.encode(torch.from_numpy(x)), ref_codec.encode(jnp.asarray(x))
+    assert msg["idx"].tolist() == np.asarray(ref_msg["idx"]).tolist()
+    assert np.array_equal(bits(msg["val"]), bits(ref_msg["val"]))
+    assert np.array_equal(bits(codec.decode(msg)), bits(ref_codec.decode(ref_msg)))
+
+
+@pytest.mark.parametrize("n,fraction", [(2000, 0.03), (4097, 0.1), (10, 1.0)])
+def test_topk_codec_orders_entries_above_and_at_the_cut_as_lax_top_k(n, fraction):
+    # a few entries above the k-th magnitude, many tied at it, the rest below
+    rng = np.random.default_rng(n)
+    mags = rng.choice([1.0, 2.0, 3.0, 4.0, 5.0], n, p=[0.5, 0.3, 0.15, 0.04, 0.01])
+    x = (mags * rng.choice([-1.0, 1.0], n) / 8).astype(np.float32)
+    codec, ref_codec = c.TopKCodec(fraction=fraction), ref_c.TopKCodec(fraction=fraction)
+    msg, ref_msg = codec.encode(torch.from_numpy(x)), ref_codec.encode(jnp.asarray(x))
+    assert msg["idx"].tolist() == np.asarray(ref_msg["idx"]).tolist()
+    assert np.array_equal(bits(msg["val"]), bits(ref_msg["val"]))
+
+
 def test_make_codec_builds_the_same_codecs():
     assert c.make_codec("int8", row=64) == c.Int8Codec(row=64)
     assert isinstance(c.make_codec("topk"), c.TopKCodec)
@@ -91,6 +119,37 @@ def test_flatten_pytree_orders_leaves_as_jax_does():
     assert isinstance(back["alpha"], list) and isinstance(back["mid"], tuple)
     for x, y in zip(c.tree_leaves(back), c.tree_leaves(tree)):
         assert x.shape == y.shape and torch.equal(x, y)
+
+
+Pair = namedtuple("Pair", ["w", "b"])
+
+
+def test_flatten_pytree_keeps_an_ordered_dicts_insertion_order():
+    def tree(lib):
+        return OrderedDict([("b", [lib(np.float32([1, 2]))]), ("a", lib(np.float32([3])))])
+
+    flat, td, shapes = c.flatten_pytree(tree(torch.tensor))
+    ref_flat, _, _ = ref_c.flatten_pytree(tree(jnp.asarray))
+    assert np.array_equal(bits(flat), bits(ref_flat))
+    assert flat.tolist() == [1.0, 2.0, 3.0]
+    back = c.unflatten_pytree(flat, td, shapes)
+    assert type(back) is OrderedDict and list(back) == ["b", "a"]
+
+
+def test_unflatten_pytree_rebuilds_a_namedtuple_as_its_type():
+    def tree(lib):
+        return {"layer": Pair(lib(np.float32([[1, 2]])), lib(np.float32([5]))),
+                "rest": (lib(np.float32([7])),)}
+
+    flat, td, shapes = c.flatten_pytree(tree(torch.tensor))
+    ref_flat, ref_td, ref_shapes = ref_c.flatten_pytree(tree(jnp.asarray))
+    assert np.array_equal(bits(flat), bits(ref_flat))
+    back = c.unflatten_pytree(flat, td, shapes)
+    ref_back = ref_c.unflatten_pytree(ref_flat, ref_td, ref_shapes)
+    assert type(back["layer"]) is Pair is type(ref_back["layer"])
+    assert type(back["rest"]) is tuple is type(ref_back["rest"])
+    assert jax.tree.structure(ref_back) == jax.tree.structure(
+        c.tree_map(lambda t: t.numpy(), back))
 
 
 def test_error_feedback_carries_the_residual_as_the_reference():

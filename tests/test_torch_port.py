@@ -1,8 +1,9 @@
 """Ground rules of the PyTorch port, checked from outside the package.
 
 * Running the port loads no JAX: a simulation with an analytics window, a
-  federated round and a gateway read runs in a fresh subprocess (this
-  pytest process has JAX loaded already) and reports `sys.modules`.
+  federated round and a gateway read, then the LLM serving path
+  (`launch.serve --llm`), run in a fresh subprocess (this pytest process
+  has JAX loaded already) and report `sys.modules`.
 * No source file of the port, and not `chip_smoke.py`, imports `jax` or
   anything of the JAX package `repro`.
 * `chip_smoke.py` exits non-zero and prints no result without CUDA, and
@@ -22,6 +23,8 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))", re.M)
 
 RUN_PORT = """
+import contextlib
+import io
 import sys
 from repro_torch.fleet.analytics import AnalyticsConfig
 from repro_torch.fleet.federated import FedConfig
@@ -37,6 +40,10 @@ gw = FleetGateway(sim)
 t = gw.session("ana").fleet_stats("Vehicle.FuelRate", window=8)
 gw.run_until_idle()
 assert t.response.ok and t.response.body["count"] > 0
+from repro_torch.launch import serve
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    serve.main(["--llm", "--device", "cpu", "--requests", "2", "--max-new", "2"])
+assert out.getvalue().startswith("2 requests -> 4 tokens")
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
 """
 
