@@ -1,16 +1,20 @@
 """Run the PyTorch port on one NVIDIA GPU: build its kernels, hold each one
-against its plain PyTorch version, then drive the system's three paths at
-full size through the entry points a user calls: the analyst-serving path
+against its plain PyTorch version, then drive the system's paths at full
+size through the entry points a user calls: the analyst-serving path
 (reads and analytics windows through the gateway), the federated round
 (rounds submitted through the gateway, then the int8 upload codec on a
-full-size model delta), and LLM serving (`serve_loop` over qwen3-4b at its
-full published width and depth, bf16, random weights from a seed, with the
-flash-attention kernel as the prefill's attention core).
+full-size model delta), and LLM serving twice: `serve_loop` over qwen3-4b
+at its full published width and depth, with the flash-attention kernel as
+the prefill's attention core, and over jamba-1.5-large's hybrid block at
+its full published width (one block of eight layers, its MoE FFNs made
+dense), whose seven mamba layers run the selective-scan kernel in every
+prefill and decode step. bf16, random weights from a seed.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each: `env`, `build`, `kernels` (one line per
-kernel case, all three kernels), `serve`, `federated`, `llm_serve`. Then
+kernel case, all four kernels), `serve`, `federated`, `llm_serve`,
+`llm_hybrid`. Then
 the kernel summary line, the card's name and power limit as `nvidia-smi`
 prints them, and last ``{"ok": true, "device": {...}}``. Any failed check
 raises and the script exits non-zero; without CUDA it exits non-zero
@@ -51,11 +55,16 @@ LLM_REQUESTS, LLM_MAX_NEW, LLM_CACHE_LEN, LLM_BATCH = 8, 16, 128, 4
 LLM_LONG_PROMPT = 2048
 #: the flash kernel's cases: name, (B, S, H, KV, D), window, dtype, causal.
 #: The first is the LLM path's prefill shape, whose timings go in the
-#: summary; the second is the LLM phase's long wave.
+#: summary; the second is the LLM phase's long wave; the next two are the
+#: hybrid phase's prefill shapes (jamba: 64 query heads on 8 KV heads).
 FLASH_CASES = [
     ("serve prefill (qwen3-4b, wave of 4 prompts <= 48)", (4, 48, 32, 8, 128), None,
      torch.bfloat16, True),
     ("long wave (qwen3-4b, 4 prompts of 2048)", (4, LLM_LONG_PROMPT, 32, 8, 128), None,
+     torch.bfloat16, True),
+    ("hybrid serve prefill (jamba, wave of 4 prompts <= 47)", (4, 47, 64, 8, 128), None,
+     torch.bfloat16, True),
+    ("hybrid long wave (jamba, 4 prompts of 2048)", (4, LLM_LONG_PROMPT, 64, 8, 128), None,
      torch.bfloat16, True),
     ("long prompt (qwen3-4b)", (4, 4096, 32, 8, 128), None, torch.bfloat16, True),
     ("gemma3-1b local layer", (1, 4096, 4, 1, 256), 512, torch.bfloat16, True),
@@ -66,6 +75,18 @@ FLASH_CASES = [
 ]
 #: the flash kernel's key tile (csrc/flash_attention.cu, kTile)
 FLASH_TILE = 64
+#: the hybrid LLM path: jamba-1.5-large at full width, cut to one block
+HYBRID_ARCH = "jamba-1.5-large-398b"
+#: the selective-scan kernel's cases: name, (B, S, inner, state), x dtype,
+#: with h0. The first is the hybrid path's long wave, whose timings go in
+#: the summary; then its serve wave and decode step, then a ragged one.
+SSM_CASES = [
+    ("long wave (jamba, 4 prompts of 2048)", (4, LLM_LONG_PROMPT, 16384, 16), torch.bfloat16,
+     False),
+    ("serve wave (jamba, 4 prompts <= 48)", (4, 48, 16384, 16), torch.bfloat16, False),
+    ("decode step (jamba)", (4, 1, 16384, 16), torch.bfloat16, True),
+    ("ragged f32", (2, 1000, 1000, 16), torch.float32, True),
+]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -659,6 +680,100 @@ def phase_flash(fa) -> dict:
     return {**first, "max_abs_err": worst}
 
 
+def scan_inputs(B, S, inner, state, x_dtype, with_h0, gen):
+    """Scan inputs on the card from a seeded generator, in the mixer's
+    ranges: dt = softplus(normal)·0.1 (mostly 1e-3..0.3), Bm, Cm, x and
+    h0 normal, A = -exp(0.5·normal)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    dt = F.softplus(randn(B, S, inner)) * 0.1
+    out = [dt, randn(B, S, state), randn(B, S, state), randn(B, S, inner).to(x_dtype),
+           -torch.exp(0.5 * randn(inner, state))]
+    return out + [randn(B, inner, state) if with_h0 else None]
+
+
+def scan_err_over_tol(got, plain, tol) -> float:
+    """The largest |got - plain| / tol over y and h (`ssm_scan_tolerance`:
+    what f32 rounding allows two evaluations of the recurrence); at most 1
+    passes."""
+    return max(float(((g - p).abs() / t).max()) for g, p, t in zip(got, plain, tol))
+
+
+def scan_faults(sc, dt, Bm, Cm, x, A, h0) -> dict:
+    """What a faulty kernel would return, from the plain version: one that
+    skipped step S // 2's update, and one that lost the carried state (h0
+    ignored, or, without h0, the state reset at S // 2)."""
+    S, t = dt.shape[1], dt.shape[1] // 2
+
+    def part(lo, hi, h):
+        return sc.ssm_scan_plain(dt[:, lo:hi], Bm[:, lo:hi], Cm[:, lo:hi], x[:, lo:hi], A, h)
+
+    y1, h1 = part(0, t, h0)
+    y2, h2 = part(t + 1, S, h1)
+    skipped = (torch.cat([y1, (h1 * Cm[:, t][:, None, :]).sum(-1)[:, None], y2], dim=1), h2)
+    if h0 is not None:
+        lost = sc.ssm_scan_plain(dt, Bm, Cm, x, A, None)
+    else:
+        y3, h3 = part(t, S, None)
+        lost = (torch.cat([y1, y3], dim=1), h3)
+    return {"skipped_step": skipped, "lost_carry": lost}
+
+
+def phase_ssm(sc) -> dict:
+    """Hold the selective-scan kernel against `ssm_scan_plain` on the card
+    at the hybrid path's shapes (long wave, serve wave, a decode step from
+    a carried state) and a ragged f32 one, y and the final h elementwise
+    within `ssm_scan_tolerance`; the same check must refuse the plain
+    output with one time step's update skipped or the carried state lost.
+    Returns the long wave's timings, and the worst error over all cases."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    first, worst = None, 0.0
+    for name, (B, S, inner, state), x_dtype, with_h0 in SSM_CASES:
+        dt, Bm, Cm, x, A, h0 = scan_inputs(B, S, inner, state, x_dtype, with_h0, gen)
+        before = sc.launches
+        got = sc.ssm_scan(dt, Bm, Cm, x, A, h0)
+        torch.cuda.synchronize()
+        check(sc.launches == before + 1, f"{name}: the kernel launched once")
+        plain = sc.ssm_scan_plain(dt, Bm, Cm, x, A, h0)
+        tol = sc.ssm_scan_tolerance(dt, Bm, Cm, x, A, h0)
+        err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+        over = scan_err_over_tol(got, plain, tol)
+        check(all(bool(torch.isfinite(g).all()) for g in got) and over <= 1.0,
+              f"{name}: kernel vs plain version, max |err| / tol {over} <= 1")
+        faults = {k: scan_err_over_tol(v, plain, tol)
+                  for k, v in scan_faults(sc, dt, Bm, Cm, x, A, h0).items()}
+        check(all(v > 1.0 for v in faults.values()), f"{name}: the check refuses {faults}")
+        worst = max(worst, err)
+        updates = B * S * inner * state
+        # dt, x and y once, Bm and Cm, A, h0 and the final h
+        nbytes = (B * S * inner * (8 + x.element_size()) + 2 * B * S * state * 4
+                  + inner * state * 4 + B * inner * state * 4 * (2 if with_h0 else 1))
+        # per update: dt·A, exp, abar·h, dx·B, +, h·C, +; per (b, t, c): dt·x
+        ops = 7 * updates + B * S * inner
+        ops_ms, bytes_ms = 1e3 * ops / PEAK_F32_OPS_PER_S, 1e3 * nbytes / PEAK_BYTES_PER_S
+        reps = 5 if S > 100 else 20
+        timing = {
+            "kernel_ms": median_ms(lambda: sc.ssm_scan(dt, Bm, Cm, x, A, h0)),
+            "plain_ms": median_ms(lambda: sc.ssm_scan_plain(dt, Bm, Cm, x, A, h0),
+                                  reps=reps, warmup=1),
+            "library_ms": None,  # no single PyTorch call computes a selective scan
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bytes": nbytes, "ops": ops, "exps": updates,
+        }
+        emit({"phase": "kernels", "kernel": "ssm_scan", "case": name,
+              "shape": [B, S, inner, state], "x_dtype": str(x_dtype), "h0": with_h0,
+              "max_abs_err": err, "err_over_tol": over,
+              "y_abs_max": float(got[0].abs().max()), "h_abs_max": float(got[1].abs().max()),
+              "fault_err_over_tol": faults, **timing, "launches": sc.launches})
+        if first is None:
+            first = timing
+        del dt, Bm, Cm, x, A, h0, got, plain, tol
+        torch.cuda.empty_cache()
+    return {**first, "max_abs_err": worst}
+
+
 def llm_requests(cfg, n: int, seed: int) -> list:
     """The launcher's request mix (`launch.serve --llm`): prompt lengths
     drawn in [8, 48), tokens uniform over the vocabulary."""
@@ -698,17 +813,30 @@ class StepTimer:
         self.engine.prefill, self.engine.decode_step = self.saved
 
 
-def phase_llm(fa) -> dict:
-    """LLM serving at qwen3-4b's full published config in bf16 on the
-    card: `serve_loop` with the launcher's defaults (8 requests of 8-47
-    tokens, 16 new tokens each, batches of 4, cache 128), then one wave of
-    4 prompts of 2048 tokens (cache 2048 + 16), timed, then once more
-    under the profiler; the flash kernel must launch once per layer and
-    prefill. Then the same
-    model with the plain attention core: the last-position logits of the
-    first wave's prefill, held to the bf16 model's own error (see below),
-    and the greedy tokens of the whole serve_loop."""
+def hybrid_config():
+    """jamba-1.5-large at its full published width, cut to one block of
+    eight layers (of nine), with each MoE FFN made a dense SwiGLU of one
+    expert's width: 7 mamba layers and attention at in-block index 4."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    (pattern, _), = cfg.groups
+    dense = tuple(dataclasses.replace(spec, ffn="dense") for spec in pattern)
+    return dataclasses.replace(cfg, name=f"{cfg.name} (1 block, dense FFNs)",
+                               groups=((dense, 1),))
+
+
+def phase_llm(cfg, fa, sc, plain_core: dict) -> dict:
+    """LLM serving of `cfg` in bf16 on the card: `serve_loop` with the
+    launcher's defaults (8 requests of 8-47 tokens, 16 new tokens each,
+    batches of 4, cache 128), then one wave of 4 prompts of 2048 tokens
+    (cache 2048 + 16), timed, then once more under the profiler. The flash
+    kernel must launch once per attention layer and prefill, the scan
+    kernel once per mamba layer and prefill or decode step. Then the same
+    model with the plain cores named in `plain_core` (`attn_impl` and/or
+    `scan_impl`): the last-position logits of the first wave's prefill,
+    held to the bf16 model's own error (see below), and the greedy tokens
+    of the whole serve_loop."""
     from repro_torch.fleet.compression import tree_map
     from repro_torch.models import init_params, param_count, prefill
     from repro_torch.serve import ServeEngine, serve_loop
@@ -716,11 +844,13 @@ def phase_llm(fa) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardstick stays f32
     torch.cuda.reset_peak_memory_stats()
     phase_t0 = time.perf_counter()
-    cfg = get_config(LLM_ARCH)
+    mixers = [spec.mixer for spec in cfg.layer_specs()]
+    n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED))
     torch.cuda.synchronize()
     out = {"arch": cfg.name, "dtype": str(cfg.dtype), "n_layers": cfg.n_layers,
+           "attn_layers": n_attn, "mamba_layers": n_mamba,
            "param_count": param_count(params), "init_s": time.perf_counter() - t0}
     engine = ServeEngine(cfg, params, cache_len=LLM_CACHE_LEN)
     serve_loop(engine, llm_requests(cfg, LLM_BATCH, SEED + 1), batch_size=LLM_BATCH)  # warm-up
@@ -740,15 +870,19 @@ def phase_llm(fa) -> dict:
         return results, long_tokens, t1 - t0, time.perf_counter() - t1
 
     # the timed run: host clock around each prefill and decode step (each
-    # ending in a synchronize); the flash launches are counted over it
-    fa.launches = 0  # count only the main path's launches
+    # ending in a synchronize); the kernels' launches are counted over it
+    fa.launches = sc.launches = 0  # count only the main path's launches
     with StepTimer() as timer:
         results, long_tokens, serve_s, long_s = main_path()
-    launches = fa.launches
-    prefills = len(timer.ms["prefill"])
-    check(prefills == 3, f"two serve waves and the long wave prefilled: {prefills}")
-    check(launches == cfg.n_layers * prefills,
-          f"flash launches {launches} == {cfg.n_layers} layers x {prefills} prefills")
+    flash_launches, ssm_launches = fa.launches, sc.launches
+    prefills, steps = len(timer.ms["prefill"]), len(timer.ms["decode"])
+    check(prefills == 3 and steps == 3 * LLM_MAX_NEW,
+          f"two serve waves and the long wave: {prefills} prefills, {steps} decode steps")
+    check(flash_launches == n_attn * prefills,
+          f"flash launches {flash_launches} == {n_attn} attention layers x {prefills} prefills")
+    check(ssm_launches == n_mamba * (prefills + steps),
+          f"scan launches {ssm_launches} == {n_mamba} mamba layers x "
+          f"({prefills} prefills + {steps} decode steps)")
     tokens = sum(len(v) for v in results.values())
     check(tokens == LLM_REQUESTS * LLM_MAX_NEW and long_tokens.shape == (LLM_BATCH, LLM_MAX_NEW),
           "every request got its tokens")
@@ -758,7 +892,8 @@ def phase_llm(fa) -> dict:
     out.update(
         requests=LLM_REQUESTS, max_new=LLM_MAX_NEW, batch_size=LLM_BATCH,
         cache_len=LLM_CACHE_LEN, prompt_lengths=[len(r.prompt) for r in reqs],
-        flash_launches=launches, prefills=prefills,
+        flash_launches=flash_launches, ssm_launches=ssm_launches,
+        prefills=prefills, decode_steps=steps,
         prefill_ms=timer.ms["prefill"],
         decode_ms_per_step_serve=statistics.median(timer.ms["decode"][:-LLM_MAX_NEW]),
         decode_ms_per_step_long=statistics.median(timer.ms["decode"][-LLM_MAX_NEW:]),
@@ -784,37 +919,37 @@ def phase_llm(fa) -> dict:
         out["device_idle_share_unprofiled_wall"] = (
             1.0 - out["device_busy_ms"] / (1e3 * (serve_s + long_s)))
 
-    # The kernel against the plain attention core in the same bf16 model.
-    # Tolerance: both round every layer's output to bf16 and differ only in
-    # the kernel's f32 summation order, so they may part by the rounding
-    # flips of a bf16 model, never by more than bf16 itself moves the
-    # logits. That yardstick is measured here: the same model in f32 (the
-    # weights upcast, plain core, no TF32). The check is
+    # The kernels against the plain core in the same bf16 model. Tolerance:
+    # both round every layer's output to bf16 and differ only in the
+    # kernel's f32 summation order, so they may part by the rounding flips
+    # of a bf16 model, never by more than bf16 itself moves the logits.
+    # That yardstick is measured here: the same model in f32 (the weights
+    # upcast, plain cores, no TF32). The check is
     # |kernel - plain| <= 2 x |plain - f32 model|, both as max abs over the
     # logits of the first serve wave's prefill.
     first = reqs[:LLM_BATCH]
     S = max(len(r.prompt) for r in first)
     wave = torch.as_tensor(np.stack([np.pad(r.prompt, (S - len(r.prompt), 0)) for r in first]),
                            device=DEVICE)
+    plain_cores = {"attn_impl": fa.flash_attention_plain, "scan_impl": sc.ssm_scan_plain}
     with torch.no_grad():
         got, _ = prefill(params, cfg, {"tokens": wave}, LLM_CACHE_LEN)
-        plain, _ = prefill(params, cfg, {"tokens": wave}, LLM_CACHE_LEN,
-                           attn_impl=fa.flash_attention_plain)
+        plain, _ = prefill(params, cfg, {"tokens": wave}, LLM_CACHE_LEN, **plain_core)
         f32 = tree_map(lambda t: t.to(torch.float32), params)
         ref32, _ = prefill(f32, dataclasses.replace(cfg, param_dtype="float32"),
-                           {"tokens": wave}, LLM_CACHE_LEN, attn_impl=fa.flash_attention_plain)
+                           {"tokens": wave}, LLM_CACHE_LEN, **plain_cores)
         del f32
     err = float((got - plain).abs().max())
     bf16_err = float((plain - ref32).abs().max())
     check(bool(torch.isfinite(got).all()) and got.shape == (LLM_BATCH, 1, cfg.padded_vocab),
           "prefill logits finite, (B, 1, V)")
     check(err <= 2 * bf16_err, f"kernel vs plain logits {err} <= 2 x bf16 model error {bf16_err}")
-    plain_results = serve_loop(ServeEngine(cfg, params, cache_len=LLM_CACHE_LEN,
-                                           attn_impl=fa.flash_attention_plain),
+    plain_results = serve_loop(ServeEngine(cfg, params, cache_len=LLM_CACHE_LEN, **plain_core),
                                llm_requests(cfg, LLM_REQUESTS, SEED), batch_size=LLM_BATCH)
     same = sum(a == b for rid in results for a, b in zip(results[rid], plain_results[rid]))
     first_tokens_same = sum(results[rid][0] == plain_results[rid][0] for rid in results)
     out.update(
+        plain_core=sorted(plain_core),
         logits_max_abs_diff_kernel_vs_plain=err, logits_max_abs_diff_plain_vs_f32=bf16_err,
         logits_abs_max=float(plain.abs().max()),
         argmax_same_prefill=int((got.argmax(-1) == plain.argmax(-1)).sum()),
@@ -827,16 +962,17 @@ def phase_llm(fa) -> dict:
     return out
 
 
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import sketch as sk
+    from repro_torch.kernels import ssm_scan as sc
 
     smi = nvidia_smi()
     emit({"phase": "env", "nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
@@ -844,7 +980,8 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    built = _build.build("sketch_fold", "quantize_int8", "flash_attention")  # one nvcc each, together
+    # one nvcc each, all started together
+    built = _build.build("sketch_fold", "quantize_int8", "flash_attention", "ssm_scan")
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln] for name in built}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_s": built,
@@ -853,6 +990,7 @@ def main() -> int:
     sketch_case = phase_kernels(sk)
     quant_case = phase_quantize(qz)
     flash_case = phase_flash(fa)
+    ssm_case = phase_ssm(sc)
 
     sk.launches = 0  # count only the serve path's launches
     serve, gw = phase_serve(sk)
@@ -868,10 +1006,17 @@ def main() -> int:
     fed["quantize_int8_launches"] = quant_launches
     emit({"phase": "federated", **fed})
 
-    llm = phase_llm(fa)  # resets fa.launches just before the main path
-    flash_launches = llm["flash_launches"]
-    check(flash_launches > 0, "the LLM path launched the flash-attention kernel")
+    # each resets the kernels' counts just before its main path
+    llm = phase_llm(get_config(LLM_ARCH), fa, sc, {"attn_impl": fa.flash_attention_plain})
+    check(llm["flash_launches"] > 0, "the LLM path launched the flash-attention kernel")
     emit({"phase": "llm_serve", **llm})
+    # the hybrid path against plain cores for both of its kernels
+    hybrid = phase_llm(hybrid_config(), fa, sc, {"scan_impl": sc.ssm_scan_plain,
+                                                 "attn_impl": fa.flash_attention_plain})
+    check(hybrid["ssm_launches"] > 0 and hybrid["flash_launches"] > 0,
+          "the hybrid LLM path launched the selective-scan and flash-attention kernels")
+    emit({"phase": "llm_hybrid", **hybrid})
+    flash_launches = llm["flash_launches"] + hybrid["flash_launches"]
 
     emit({"kernels": [
         {
@@ -912,6 +1057,19 @@ def main() -> int:
             "bound_ms": flash_case["bound_ms"],
             "bound_by": flash_case["bound_by"],
             "library_ms": flash_case["library_ms"],
+        },
+        {
+            "name": "ssm_scan",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan.py:23",
+            "launches": hybrid["ssm_launches"],
+            "max_abs_err": ssm_case["max_abs_err"],
+            "ms": ssm_case["kernel_ms"],
+            "plain_ms": ssm_case["plain_ms"],
+            "bound_ms": ssm_case["bound_ms"],
+            "bound_by": ssm_case["bound_by"],
+            "library_ms": ssm_case["library_ms"],
         },
     ]})
     print(smi, flush=True)

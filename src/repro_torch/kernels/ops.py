@@ -5,6 +5,11 @@
 CUDA tensor, its plain PyTorch version on a CPU tensor); the model's
 attention layers call it unless given another `attn_impl`.
 
+`ssm_scan` is Mamba's selective scan of `repro_torch.kernels.ssm_scan`
+(the hand-written CUDA kernel on a CUDA tensor, its plain PyTorch version
+on a CPU tensor), returning y and the final state; the model's mamba
+layers call it unless given another `scan_impl`.
+
 `quantize_int8` / `dequantize_int8` are the int8 codec of
 `repro_torch.kernels.quantize` (the hand-written CUDA kernel on a CUDA
 tensor, its plain PyTorch version on a CPU tensor).
@@ -24,10 +29,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 __all__ = [
     "dequantize_int8", "flash_attention", "merge_histograms", "merge_moments",
-    "merge_quantile_sketches", "quantize_int8",
+    "merge_quantile_sketches", "quantize_int8", "ssm_scan",
 ]
 
 

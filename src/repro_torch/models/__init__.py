@@ -1,5 +1,6 @@
-"""Model substrate: decoder architectures in PyTorch (attention mixers,
-dense SwiGLU FFNs), with the flash-attention kernel as the prefill core."""
+"""Model substrate: decoder architectures in PyTorch (attention and mamba
+mixers, dense SwiGLU FFNs), with the flash-attention kernel as the
+prefill's attention core and the selective-scan kernel as the mamba scan."""
 from repro_torch.models.model import (
     ArchConfig,
     LayerSpec,

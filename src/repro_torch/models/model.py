@@ -10,19 +10,24 @@ and the layers run in a Python loop:
 
     params = {"layers": [layer, ...], "final_norm": (d,),
               "embed": (V, d), "lm_head": (d, V) unless tied}
-    layer  = {"norm1", "mixer": {"wq", "wk", "wv", "wo"[, "q_norm", "k_norm"]},
-              "norm2", "ffn": {"w_gate", "w_up", "w_down"}}
-    cache  = {"layers": [{"k", "v"}, ...], "position": int}
+    layer  = {"norm1", "mixer", "norm2", "ffn": {"w_gate", "w_up", "w_down"}}
+    mixer  = {"wq", "wk", "wv", "wo"[, "q_norm", "k_norm"]}            (attn)
+           | {"in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+              "dt_bias", "A_log", "D", "out_proj"}                     (mamba)
+    cache  = {"layers": [{"k", "v"} | {"ssm", "conv"}, ...], "position": int}
 
 Weights keep the JAX layout `(d_in, d_out)`. `models.convert.params_from_jax`
 carries a JAX parameter tree over.
 
 Two entry points:
   * ``prefill``     — consume a prompt, return last-position logits + the
-    decode cache (the attention core is the flash kernel on the card);
+    decode cache;
   * ``decode_step`` — one token against the cache.
+On the card the attention layers' prefill core is the flash kernel
+(`attn_impl`) and the mamba layers' scan is the selective-scan kernel in
+prefill and decode (`scan_impl`).
 
-Attention mixers with dense FFNs are ported. The mamba, mLSTM and sLSTM
+Attention and mamba mixers with dense FFNs are ported. The mLSTM and sLSTM
 mixers and MoE FFNs raise `NotImplementedError`; training (`train_loss`)
 is not ported (ROADMAP queue 1).
 """
@@ -35,6 +40,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models.layers import (
     Params,
     dense_init,
@@ -48,8 +54,8 @@ from repro_torch.models.layers import (
     swiglu_init,
 )
 
-PENDING = ("{what} is not ported yet: ROADMAP queue 1 (the mamba mixer with the "
-           "selective scan next, then training, MoE and xLSTM)")
+PENDING = ("{what} is not ported yet: ROADMAP queue 1 (training, MoE and xLSTM; "
+           "MoE is what the full jamba config waits for)")
 
 
 # --------------------------------------------------------------------- #
@@ -153,7 +159,7 @@ def tiny_variant(cfg: ArchConfig, **overrides) -> ArchConfig:
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "mamba"):
         raise NotImplementedError(PENDING.format(what=f"the {spec.mixer} mixer"))
     if spec.ffn == "moe":
         raise NotImplementedError(PENDING.format(what="the MoE FFN"))
@@ -165,11 +171,14 @@ def _check_ported(spec: LayerSpec) -> None:
 def _layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ArchConfig) -> Params:
     _check_ported(spec)
     dev = gen.device
-    p: Params = {
-        "norm1": rms_norm_init(cfg.d_model, dev),
-        "mixer": attn.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.head_dim, cfg.dtype, qk_norm=cfg.qk_norm),
-    }
+    if spec.mixer == "attn":
+        mixer = attn.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, cfg.dtype, qk_norm=cfg.qk_norm)
+    else:
+        mixer = mam.mamba_init(gen, cfg.d_model, expand=cfg.mamba_expand,
+                               d_state=cfg.mamba_d_state, d_conv=cfg.mamba_conv,
+                               dtype=cfg.dtype)
+    p: Params = {"norm1": rms_norm_init(cfg.d_model, dev), "mixer": mixer}
     if spec.ffn == "dense":
         p["norm2"] = rms_norm_init(cfg.d_model, dev)
         p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
@@ -226,6 +235,13 @@ def cache_spec(cfg: ArchConfig, batch_size: int, cache_len: int) -> dict[str, An
     layers = []
     for spec in cfg.layer_specs():
         _check_ported(spec)
+        if spec.mixer == "mamba":
+            inner = cfg.mamba_expand * cfg.d_model
+            layers.append({
+                "ssm": ((batch_size, inner, cfg.mamba_d_state), torch.float32),
+                "conv": ((batch_size, cfg.mamba_conv - 1, inner), cfg.dtype),
+            })
+            continue
         eff = min(spec.window, cache_len) if spec.window else cache_len
         kv = ((batch_size, eff, cfg.n_kv_heads, cfg.head_dim), cfg.dtype)
         layers.append({"k": kv, "v": kv})
@@ -287,34 +303,48 @@ def prefill(
     cache_len: int,
     *,
     attn_impl: Callable | None = None,
+    scan_impl: Callable | None = None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """Consume the prompt; return (last-token logits (B, 1, V) f32, decode
     cache). Positions run 0..S-1 for every row; nothing masks padding.
-    `attn_impl` replaces the attention core (default: the flash kernel)."""
+    `attn_impl` replaces the attention core (default: the flash kernel),
+    `scan_impl` the mamba layers' scan (default: the selective-scan
+    kernel)."""
     x = _input_hidden(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     caches = []
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
         _check_ported(spec)
-        y, c = attn.attention_prefill(
-            p["mixer"], rms_norm(x, p["norm1"]),
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            positions=positions, rope_theta=cfg.rope_theta, window=spec.window,
-            cache_len=cache_len, attn_impl=attn_impl,
-        )
+        h = rms_norm(x, p["norm1"])
+        if spec.mixer == "mamba":
+            y, c = mam.mamba_apply(p["mixer"], h, d_state=cfg.mamba_d_state,
+                                   return_state=True, scan_impl=scan_impl)
+        else:
+            y, c = attn.attention_prefill(
+                p["mixer"], h,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                positions=positions, rope_theta=cfg.rope_theta, window=spec.window,
+                cache_len=cache_len, attn_impl=attn_impl,
+            )
         x = _ffn(p, spec, x + y)
         caches.append(c)
     return _logits(params, cfg, x[:, -1:]), {"layers": caches, "position": S}
 
 
 def decode_step(
-    params: Params, cfg: ArchConfig, batch: dict[str, torch.Tensor], cache: dict[str, Any]
+    params: Params,
+    cfg: ArchConfig,
+    batch: dict[str, torch.Tensor],
+    cache: dict[str, Any],
+    *,
+    scan_impl: Callable | None = None,
 ) -> tuple[torch.Tensor, dict[str, Any]]:
     """One token for every sequence in the batch. batch: {"tokens": (B, 1)}
     or {"frame_embeds": (B, 1, d)}. One scalar position serves the whole
-    batch, as in the reference. The cache's tensors are updated in place;
-    returns (logits, cache with position + 1)."""
+    batch, as in the reference. Attention caches are updated in place, a
+    mamba layer's state is replaced; returns (logits, cache with position +
+    1). `scan_impl` replaces the mamba layers' scan (default: the kernel)."""
     position = int(cache["position"])
     if cfg.uses_embedding_input:
         x = batch["frame_embeds"].to(cfg.dtype)
@@ -324,11 +354,16 @@ def decode_step(
     layers = []
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache["layers"]):
         _check_ported(spec)
-        y, c = attn.attention_decode(
-            p["mixer"], rms_norm(x, p["norm1"]), c,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            position=position, rope_theta=cfg.rope_theta, window=spec.window,
-        )
+        h = rms_norm(x, p["norm1"])
+        if spec.mixer == "mamba":
+            y, c = mam.mamba_decode(p["mixer"], h, c, d_state=cfg.mamba_d_state,
+                                    scan_impl=scan_impl)
+        else:
+            y, c = attn.attention_decode(
+                p["mixer"], h, c,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                position=position, rope_theta=cfg.rope_theta, window=spec.window,
+            )
         x = _ffn(p, spec, x + y)
         layers.append(c)
     return _logits(params, cfg, x), {"layers": layers, "position": position + 1}

@@ -3,8 +3,9 @@
 Requests are admitted into a fixed-size decode batch, prefilled, decoded
 for their token budget, and the next wave is admitted when the batch is
 done. Everything runs eagerly on the device the parameters live on (the
-card, unless they were made on the CPU); the prefill's attention core is
-the flash-attention kernel there. Greedy or temperature sampling.
+card, unless they were made on the CPU); there the prefill's attention core
+is the flash-attention kernel and the mamba layers' scan (prefill and
+decode) the selective-scan kernel. Greedy or temperature sampling.
 
 As in the JAX package's engine: a wave's prompts are left-padded with
 token 0 to a common length and nothing masks the padding (padded
@@ -35,14 +36,16 @@ class Request:
 class ServeEngine:
     """Static-batch engine (one prefill per batch; `serve_loop` below
     admits waves of requests). `attn_impl` replaces the prefill's
-    attention core (default: `ops.flash_attention`)."""
+    attention core (default: `ops.flash_attention`), `scan_impl` the mamba
+    layers' scan (default: `ops.ssm_scan`)."""
 
     def __init__(self, cfg: ArchConfig, params: Any, *, cache_len: int,
-                 attn_impl: Callable | None = None):
+                 attn_impl: Callable | None = None, scan_impl: Callable | None = None):
         self.cfg = cfg
         self.params = params
         self.cache_len = cache_len
         self.attn_impl = attn_impl
+        self.scan_impl = scan_impl
         self.device = params["final_norm"].device
 
     def _sample(self, logits: torch.Tensor, temperature: float,
@@ -68,15 +71,15 @@ class ServeEngine:
         `seed`; it does not reproduce jax.random's draws."""
         B = prompts.shape[0]
         tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
-        logits, cache = prefill(self.params, self.cfg, {"tokens": tokens},
-                                self.cache_len, attn_impl=self.attn_impl)
+        logits, cache = prefill(self.params, self.cfg, {"tokens": tokens}, self.cache_len,
+                                attn_impl=self.attn_impl, scan_impl=self.scan_impl)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         outs = []
         tok = self._sample(logits, temperature, gen)
         for _ in range(max_new_tokens):
             outs.append(tok)
-            logits, cache = decode_step(self.params, self.cfg,
-                                        {"tokens": tok.reshape(B, 1)}, cache)
+            logits, cache = decode_step(self.params, self.cfg, {"tokens": tok.reshape(B, 1)},
+                                        cache, scan_impl=self.scan_impl)
             tok = self._sample(logits, temperature, gen)
         return torch.stack(outs, dim=1).cpu().numpy()  # (B, new)
 

@@ -104,7 +104,8 @@ def cuda():
     return torch.device("cuda")
 
 
-CARD_CASES = CASES + [(4, 48, 32, 8, 128, None), (1, 300, 8, 8, 32, 100), (2, 1000, 8, 2, 128, 128)]
+CARD_CASES = CASES + [(4, 48, 32, 8, 128, None), (1, 300, 8, 8, 32, 100), (2, 1000, 8, 2, 128, 128),
+                     (4, 47, 64, 8, 128, None), (1, 300, 16, 2, 64, 100)]  # G = 8 (jamba)
 NON_CAUSAL_CASES = [(1, 40, 4, 2, 64, None), (1, 40, 4, 2, 64, 9), (2, 130, 4, 4, 120, None),
                     (1, 300, 8, 2, 128, 100)]
 #: kernel against plain version on the card (see the module docstring)

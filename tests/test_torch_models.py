@@ -1,9 +1,11 @@
 """The port's decoder (`repro_torch.models`) against the JAX package's, on
 the CPU, with the JAX weights carried over by `params_from_jax`.
 
-Both sides run f32 at tiny configs (qwen3-4b, granite-8b, gemma3-1b and
-two windowed variants); the port's attention core on the CPU is the
-flash kernel's plain version. The inputs come from numpy with fixed seeds.
+Both sides run f32 at tiny configs (qwen3-4b, granite-8b, gemma3-1b, two
+windowed variants, and jamba's hybrid block with its MoE FFNs made dense);
+the port's attention core on the CPU is the flash kernel's plain version,
+its mamba scan the selective-scan kernel's. The inputs come from numpy
+with fixed seeds.
 
 Tolerances: logits and caches at atol = rtol = 1e-4. Both sides compute in
 f32 and the products, softmax and norms sum in different orders (XLA's
@@ -41,6 +43,14 @@ def port_cfg(ref_cfg) -> model.ArchConfig:
     return model.ArchConfig(**fields)
 
 
+def expert_free(cfg):
+    """A config with every MoE FFN replaced by a dense SwiGLU of one
+    expert's width (jamba's hybrid block without experts)."""
+    groups = tuple((tuple(dataclasses.replace(s, ffn="dense") for s in pattern), r)
+                   for pattern, r in cfg.groups)
+    return dataclasses.replace(cfg, groups=groups)
+
+
 def windowed(name: str, window: int, repeats: tuple) -> object:
     """A tiny reference config whose local layers have `window` (global
     layers stay global) and whose groups repeat `repeats` times."""
@@ -59,6 +69,8 @@ CASES = {
     # rolling caches beside global ones, and the scan's repeat order
     "gemma3-1b-w4x2": lambda: windowed("gemma3-1b", 4, (2, 1)),
     "h2o-danube-3-4b-w4": lambda: windowed("h2o-danube-3-4b", 4, (2,)),
+    # 7 mamba layers and attention at in-block index 4 (no rope), dense FFNs
+    "jamba-1.5-large-398b-dense": lambda: expert_free(ref_get_tiny("jamba-1.5-large-398b")),
 }
 
 
@@ -128,7 +140,7 @@ def test_reference_attention_and_repeat_kv_match(window):
                           np.asarray(ref_attn.repeat_kv(jnp.asarray(k), 4)))
 
 
-@pytest.mark.parametrize("case", ["qwen3-4b", "gemma3-1b-w4x2"])
+@pytest.mark.parametrize("case", ["qwen3-4b", "gemma3-1b-w4x2", "jamba-1.5-large-398b-dense"])
 def test_cache_spec_and_init_cache_match(case):
     ref_cfg = CASES[case]()
     cfg = port_cfg(ref_cfg)
@@ -140,7 +152,8 @@ def test_cache_spec_and_init_cache_match(case):
     cache = model.init_cache(cfg, 3, 16, device="cpu")
     assert cache["position"] == want["position"] == 0
     for s_leaf, c_leaf, w_leaf in zip(spec["layers"], cache["layers"], want["layers"]):
-        for name in ("k", "v"):
+        assert sorted(s_leaf) == sorted(c_leaf) == sorted(w_leaf)
+        for name in w_leaf:
             assert s_leaf[name] == (tuple(w_leaf[name].shape), w_leaf[name].dtype)
             assert torch.equal(c_leaf[name], w_leaf[name])
 
@@ -154,8 +167,9 @@ def check_cache(cfg, got, ref_cache):
     assert got["position"] == want["position"]
     assert len(got["layers"]) == len(want["layers"]) == cfg.n_layers
     for g, w in zip(got["layers"], want["layers"]):
-        for leaf in ("k", "v"):
-            assert g[leaf].shape == w[leaf].shape
+        assert sorted(g) == sorted(w)
+        for leaf in w:
+            assert g[leaf].shape == w[leaf].shape and g[leaf].dtype == w[leaf].dtype
             close(g[leaf], w[leaf])
 
 
@@ -263,7 +277,45 @@ def test_param_counts_and_init_distributions():
     assert float(mine["final_norm"].abs().max()) == 0.0
 
 
+def test_params_from_jax_keeps_the_mamba_leaves_dtypes():
+    """In a bf16 jamba cut, the mamba mixer's bf16 leaves come over bit for
+    bit and its f32 leaves (conv_b, dt_bias, A_log, D) stay f32; the decode
+    cache's ssm state is f32 and its conv tail bf16, as the reference's."""
+    ref_cfg = dataclasses.replace(CASES["jamba-1.5-large-398b-dense"](), param_dtype="bfloat16")
+    ref_params = ref_model.init_params(ref_cfg, jax.random.PRNGKey(4))
+    cfg = port_cfg(ref_cfg)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, ref_params), device="cpu")
+    mixer = params["layers"][0]["mixer"]
+    ref_mixer = ref_params["groups"][0]["0"]["mixer"]
+    assert sorted(mixer) == sorted(ref_mixer)
+    for name, leaf in ref_mixer.items():
+        want = np.asarray(leaf[0])
+        assert str(mixer[name].dtype).split(".")[1] == str(want.dtype), name
+        assert np.array_equal(mixer[name].view(torch.int16 if want.dtype.itemsize == 2
+                                                 else torch.int32).numpy(),
+                              want.view(np.int16 if want.dtype.itemsize == 2 else np.int32)), name
+    assert {n for n, v in mixer.items() if v.dtype == torch.float32} == {
+        "conv_b", "dt_bias", "A_log", "D"}
+    spec = model.cache_spec(cfg, 2, 8)["layers"][0]
+    assert spec == {"ssm": ((2, 256, 16), torch.float32), "conv": ((2, 3, 256), torch.bfloat16)}
+
+
+def test_jamba_cut_param_count_matches():
+    ref_cfg, ref_params, cfg, params = build("jamba-1.5-large-398b-dense")
+    mine = model.init_params(cfg, torch.Generator().manual_seed(0))
+    assert model.param_count(mine) == model.param_count(params) == ref_model.param_count(ref_params)
+    assert [s.mixer for s in cfg.layer_specs()] == ["mamba"] * 4 + ["attn"] + ["mamba"] * 3
+
+
+#: what each tiny config meets first that the port does not have
+UNPORTED = {"jamba-1.5-large-398b": "the MoE FFN", "xlstm-1.3b": "the mlstm mixer",
+            "granite-moe-1b-a400m": "the MoE FFN"}
+
+
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b", "granite-moe-1b-a400m"])
 def test_unported_mixers_and_moe_raise_the_named_error(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    """jamba's mamba layers are ported: its tiny config gets past them and
+    stops at its first MoE FFN (in-block index 1)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1") as err:
         model.init_params(get_tiny(arch), torch.Generator().manual_seed(0))
+    assert str(err.value).startswith(f"{UNPORTED[arch]} is not ported yet")

@@ -2,7 +2,8 @@
 
 * Running the port loads no JAX: a simulation with an analytics window, a
   federated round and a gateway read, then the LLM serving path
-  (`launch.serve --llm`), run in a fresh subprocess (this pytest process
+  (`launch.serve --llm`) and a prefill and decode step of jamba's hybrid
+  block (mamba layers), run in a fresh subprocess (this pytest process
   has JAX loaded already) and report `sys.modules`.
 * No source file of the port, and not `chip_smoke.py`, imports `jax` or
   anything of the JAX package `repro`.
@@ -44,6 +45,17 @@ from repro_torch.launch import serve
 with contextlib.redirect_stdout(io.StringIO()) as out:
     serve.main(["--llm", "--device", "cpu", "--requests", "2", "--max-new", "2"])
 assert out.getvalue().startswith("2 requests -> 4 tokens")
+import dataclasses
+import torch
+from repro_torch.configs import get_tiny
+from repro_torch.models import decode_step, init_params, prefill
+cfg = get_tiny("jamba-1.5-large-398b")
+cfg = dataclasses.replace(cfg, groups=((tuple(dataclasses.replace(s, ffn="dense")
+                                              for s in cfg.groups[0][0]), 1),))
+params = init_params(cfg, torch.Generator().manual_seed(0))
+_, cache = prefill(params, cfg, {"tokens": torch.zeros((1, 5), dtype=torch.long)}, 8)
+logits, _ = decode_step(params, cfg, {"tokens": torch.zeros((1, 1), dtype=torch.long)}, cache)
+assert bool(torch.isfinite(logits).all())
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")))
 """
 

@@ -4,6 +4,9 @@ JAX package's, on the CPU, with the JAX weights carried over by
 
 Greedy tokens must be equal, token for token: both sides take the first
 maximum of f32 logits that agree within 1e-4 (tests/test_torch_models.py).
+Besides the attention-only configs, jamba's hybrid block with its MoE FFNs
+made dense runs through both engines: its mamba layers carry their state
+from the prefill into every decode step.
 No seed here lands on an argmax near-tie; had one done so, the test would
 compare that step's logits instead, and say so.
 """
@@ -24,11 +27,15 @@ from repro_torch.models import model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import Request, ServeEngine, serve_loop
 
+from test_torch_models import expert_free
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
 def engines(arch, seed, cache_len=64):
     ref_cfg = ref_get_tiny(arch)
+    if arch == "jamba-1.5-large-398b":
+        ref_cfg = expert_free(ref_cfg)
     ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(seed))
     fields = {f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(ref_cfg)}
     fields["groups"] = tuple(
@@ -53,6 +60,24 @@ def requests(vocab, lengths, seed, cls):
     rng = np.random.default_rng(seed)
     return [cls(f"r{i}", rng.integers(0, vocab, (int(n),)), max_new_tokens=4)
             for i, n in enumerate(lengths)]
+
+
+def test_serve_loop_on_the_jamba_cut_matches_the_reference():
+    """Greedy `serve_loop` tokens of the hybrid cut equal the JAX
+    engine's, with the waves' left padding unmasked in both (the
+    reference's fault, reproduced: the padding runs through the mamba
+    state and the attention alike)."""
+    eng, ref = engines("jamba-1.5-large-398b", seed=4)
+    assert {s.mixer for s in eng.cfg.layer_specs()} == {"mamba", "attn"}
+    lengths = [9, 14, 6]  # one wave: two prompts left-padded
+    got = serve_loop(eng, requests(eng.cfg.vocab_size, lengths, 4, Request), batch_size=3)
+    want = ref_engine.serve_loop(ref, requests(eng.cfg.vocab_size, lengths, 4, ref_engine.Request),
+                                 batch_size=3)
+    assert got == want and all(len(v) == 4 for v in got.values())
+    # the padding is not masked: the short prompt of a wave answers
+    # otherwise than alone
+    alone = serve_loop(eng, requests(eng.cfg.vocab_size, lengths, 4, Request)[2:3], batch_size=1)
+    assert alone["r2"] != got["r2"]
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b"])
