@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -73,8 +74,11 @@ FLASH_CASES = [
     ("non-causal, windowed (the wrapper's other mask)", (2, 300, 8, 2, 128), 100,
      torch.bfloat16, False),
 ]
-#: the flash kernel's key tile (csrc/flash_attention.cu, kTile)
+#: the flash kernels' key tile (csrc/flash_attention.cu: kBlockKeys of the
+#: bf16 tensor-core kernel, kTile of the f32 one)
 FLASH_TILE = 64
+#: the flash kernel of each path (`flash_attention.PATHS`), as ptxas names it
+FLASH_KERNELS = {"tensor_cores": "flash_fwd_tc", "cuda_cores": "flash_fwd_f32"}
 #: the hybrid LLM path: jamba-1.5-large at full width, cut to one block
 HYBRID_ARCH = "jamba-1.5-large-398b"
 #: the selective-scan kernel's cases: name, (B, S, inner, state), x dtype,
@@ -619,13 +623,38 @@ def dropped_tile(q, k, v, plain, window, causal):
     return out
 
 
-def phase_flash(fa) -> dict:
+def ptxas_usage(log: str, kernel: str) -> list[dict]:
+    """Registers and spill bytes of each instantiation of `kernel` in an
+    `nvcc -Xptxas -v` log, as `[{"function", "registers", "spill_stores",
+    "spill_loads"}]`."""
+    out, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            if kernel not in name:
+                current = None
+                continue
+            arg = re.search(kernel + r"ILi(\d+)E", name)
+            current = {"function": f"{kernel}<{arg.group(1)}>" if arg else kernel}
+            out.append(current)
+        elif current is not None and (spill := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            current["spill_stores"], current["spill_loads"] = map(int, spill.groups())
+        elif current is not None and (regs := re.search(r"Used (\d+) registers", line)):
+            current["registers"] = int(regs.group(1))
+    return out
+
+
+def phase_flash(fa, build_log: str) -> dict:
     """Hold the flash-attention kernel against `flash_attention_plain` on
     the card at the LLM path's shapes, at the configs' long and windowed
     ones and at the non-causal mask, elementwise (`flash_err_over_tol`).
     Where the last query tile sees more than one key tile, the same check
-    must refuse the plain output with one of those tiles dropped. Returns
-    the serve-prefill case's timings, and the worst error over all cases."""
+    must refuse the plain output with one of those tiles dropped. Each
+    case's line names the path its dtype runs (`fa.PATHS`) and that
+    kernel's registers and spills from `build_log`. Returns the
+    serve-prefill case's timings, and the worst error over all cases."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     first, worst = None, 0.0
     for name, (B, S, H, KV, D), window, dtype, causal in FLASH_CASES:
@@ -667,9 +696,12 @@ def phase_flash(fa) -> dict:
             "flops": flops, "bytes": nbytes,
         }
         timing["flop_rate_tflops"] = flops / timing["kernel_ms"] / 1e9
+        path = fa.PATHS[dtype]
         emit({"phase": "kernels", "kernel": "flash_attention", "case": name,
               "shape": [B, S, H, KV, D], "window": window, "causal": causal,
-              "dtype": str(dtype), "max_abs_err": err, "err_over_tol": over,
+              "dtype": str(dtype), "path": path,
+              "ptxas": ptxas_usage(build_log, FLASH_KERNELS[path]),
+              "max_abs_err": err, "err_over_tol": over,
               "out_abs_max": float(got.float().abs().max()),
               "dropped_tile_err_over_tol": mutant_over, "dropped_tile_max_abs_diff": mutant_err,
               "library_max_abs_err": library_err, **timing, "launches": fa.launches})
@@ -989,7 +1021,7 @@ def main() -> int:
 
     sketch_case = phase_kernels(sk)
     quant_case = phase_quantize(qz)
-    flash_case = phase_flash(fa)
+    flash_case = phase_flash(fa, _build.build_log("flash_attention"))
     ssm_case = phase_ssm(sc)
 
     sk.launches = 0  # count only the serve path's launches

@@ -4,14 +4,21 @@ the attention itself a hand-written CUDA kernel.
 ``out = softmax(q·kᵀ·D^-½ + mask)·v`` for q `(B, S, H, D)` and k, v
 `(B, S, KV, D)`: query head h reads KV head ``h // (H / KV)``. The mask is
 causal (``q_pos >= k_pos``) and, with a window, ``q_pos - k_pos < window``.
-All arithmetic is f32 inside; the output has q's dtype. This is what the
+The softmax is f32 inside; the output has q's dtype. This is what the
 JAX package's Pallas `_flash_kernel` and its oracle `flash_attention_ref`
 compute.
 
 `flash_attention` runs `flash_attention_plain` on a CPU tensor and launches
 `csrc/flash_attention.cu` on a CUDA tensor. Nothing falls back from one to
-the other. Unlike the Pallas wrapper, any S is taken: the kernel masks the
-ragged tail of the last tile itself.
+the other. The kernel is chosen by dtype (`PATHS`): bf16 runs on the tensor
+cores (wgmma with TMA-fed K/V tiles; P·V as bf16 products over P split
+into three bf16 terms, all of p's f32 bits, so the output stays within one
+bf16 step of the plain version's), f32 on the CUDA cores (f32 FMAs
+throughout, within 2e-5). Any other dtype raises. Unlike the Pallas
+wrapper, any S is taken: the kernel masks the ragged tail of the last tile
+itself. TMA wants 16-byte strides and addresses, so a bf16 call with D not
+a multiple of 8 (or a misaligned tensor) hands the kernel copies padded
+with zero columns (or realigned).
 """
 from __future__ import annotations
 
@@ -23,6 +30,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+
+#: which cores each dtype's kernel runs on
+PATHS = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 
 #: launches of the flash-attention CUDA kernel in this process:
 #: `flash_attention` adds one per launch and nothing else touches it
@@ -66,6 +76,14 @@ def _launcher():
     return fn
 
 
+def _tma_ready(x: torch.Tensor, width: int) -> torch.Tensor:
+    """`x` as the bf16 kernel takes it: `width` (a multiple of 8) columns,
+    the new ones zero, and a 16-byte aligned start."""
+    if x.shape[-1] != width:
+        return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """GQA attention of `(B, S, H, D)` queries over `(B, S, KV, D)` keys
     and values. CPU tensors run `flash_attention_plain`; CUDA tensors
@@ -93,16 +111,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
         raise ValueError(f"window must be positive, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    width = D
+    if q.dtype == torch.bfloat16:
+        width = -(-D // 8) * 8
+        q, k, v = (_tma_ready(x, width) for x in (q, k, v))
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
     launch = _launcher()
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, S, H, KV, D, int(causal), 0 if window is None else min(window, S),
+                     B, S, H, KV, width, int(causal), 0 if window is None else min(window, S),
                      1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel did not launch: CUDA error {err}")
     launches += 1
-    return out
+    return out if width == D else out[..., :D].contiguous()
